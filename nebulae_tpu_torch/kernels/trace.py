@@ -1,0 +1,586 @@
+"""Fat4 traversal tables and kernels K1-K3, with their plain PyTorch versions.
+
+Replaces `nebulae_tpu/kernels/pallas_trace.py` (pack_bvh_fat4, _grouped_tris
+and the fat4 closest / combo / any kernels).  The tables hold the same
+values as the JAX packer, in a row-major layout one GPU thread can load:
+
+  fat4nodes [n_nodes, 32] f32: slot k box at [6k, 6k+6) (lo.xyz, hi.xyz);
+      [24 + k] the slot's enc as int32 bits: leaf -> first_slot*32 + count
+      (1..15), inner -> fat4_id*32 + 16, empty -> 0; [28] the order meta
+      om_self*36 + om_left*6 + om_right as int32 bits; [29:32] zero.
+  tris [n_slots, G, 10] f32: v0, e1, e2 and the original triangle id as
+      int32 bits; short leaves repeat their last triangle.
+
+Each `*_fat4` wrapper launches its CUDA kernel (csrc/trace.cu) for CUDA
+tensors and runs the plain version for CPU tensors; it raises on anything
+else.  The plain versions walk the same tree in the same per-ray order with
+the same float32 arithmetic (one rounding per multiply and add), so on one
+device kernel and plain version agree bit for bit in tri and occ.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from nebulae_tpu_torch.kernels.build import check, native
+
+TRI_STRIDE = 10
+NODE_STRIDE = 32
+META_SHIFT = 5
+MAX_LEAF_FIELD = 15
+INNER_FIELD = 16
+EPS = 1e-7
+DEAD_RAY_ORIGIN = 1.0e13
+STACK_MAX = 128  # csrc/trace.cu kStackMax
+
+
+# ---------------------------------------------------------------------------
+# Host-side packing
+# ---------------------------------------------------------------------------
+
+
+def grouped_tris(bvh, tri_pos: np.ndarray, tri_group: int):
+    """Each leaf's triangle range in ceil(c/G) slots of G triangles.
+
+    Returns (tris [n_slots, G, 10] f32, slot_first [n], slot_count [n]) with
+    slot_first/slot_count per node (0 for inner nodes)."""
+    G = int(tri_group)
+    n = bvh.node_lo.shape[0]
+    counts = np.asarray(bvh.node_count, np.int64)
+    leaf_nodes = np.nonzero(counts > 0)[0]
+    c = counts[leaf_nodes]
+    sc = (c + G - 1) // G
+    sf = np.zeros_like(sc)
+    if sc.size:
+        sf[1:] = np.cumsum(sc)[:-1]
+    ns = int(sc.sum())
+    slot_first = np.zeros(n, np.int64)
+    slot_count = np.zeros(n, np.int64)
+    slot_first[leaf_nodes] = sf
+    slot_count[leaf_nodes] = sc
+    if slot_count.max(initial=0) > MAX_LEAF_FIELD:
+        raise ValueError("leaf slots exceed the 15-slot encoding: raise bvh_tri_group or lower max_leaf")
+    tris = np.zeros((max(ns, 1), G, TRI_STRIDE), np.float32)
+    if ns:
+        tperm = tri_pos[bvh.tri_index]
+        tid = np.asarray(bvh.tri_index, np.int32)
+        leaf_of_slot = np.repeat(np.arange(leaf_nodes.shape[0]), sc)
+        slot_in_leaf = np.arange(ns) - sf[leaf_of_slot]
+        base = np.asarray(bvh.node_first, np.int64)[leaf_nodes]
+        for g in range(G):
+            off = np.minimum(slot_in_leaf * G + g, c[leaf_of_slot] - 1)
+            sel = base[leaf_of_slot] + off
+            tp = tperm[sel]
+            tris[:ns, g, 0:3] = tp[:, 0]
+            tris[:ns, g, 3:6] = tp[:, 1] - tp[:, 0]
+            tris[:ns, g, 6:9] = tp[:, 2] - tp[:, 0]
+            tris[:ns, g, 9] = tid[sel].view(np.float32)
+    return tris, slot_first, slot_count
+
+
+def pack_bvh_fat4(bvh, tri_pos: np.ndarray, tri_group: int = 8) -> dict | None:
+    """FlatBVH + world triangles -> fat4 tables (numpy), or None when the
+    root is a leaf (that case is kernel K8, not ported).
+
+    Fat4 node i expands BVH2 inner node i into its grandchildren: slots 0, 1
+    are the children of i's left child (or [left child, empty] when it is a
+    leaf), slots 2, 3 likewise for the right child.  Rows are numbered in
+    breadth-first order from the root.  Also returns `stack_depth`, the
+    deepest traversal stack the tree can need (3 per fat4 level + 1)."""
+    n = int(bvh.node_lo.shape[0])
+    is_leaf = np.asarray(bvh.node_count) > 0
+    if n == 0 or is_leaf[0]:
+        return None
+    tris, slot_first, slot_count = grouped_tris(bvh, tri_pos, tri_group)
+    node_lo = np.asarray(bvh.node_lo, np.float32)
+    node_hi = np.asarray(bvh.node_hi, np.float32)
+    node_right = np.asarray(bvh.node_right)
+
+    def order_meta(a, b):
+        ca = (node_lo[a] + node_hi[a]) * 0.5
+        cb = (node_lo[b] + node_hi[b]) * 0.5
+        axis = int(np.argmax(np.abs(cb - ca)))
+        return axis * 2 + int(ca[axis] <= cb[axis])
+
+    def pair_of(c):
+        if is_leaf[c]:
+            return [c, -1], 0
+        gl, gr = c + 1, int(node_right[c])
+        return [gl, gr], order_meta(gl, gr)
+
+    fat_id = {0: 0}
+    order = [0]
+    level = [1]
+    slots_all, oms = [], []
+    qi = 0
+    while qi < len(order):
+        i = order[qi]
+        l, r = i + 1, int(node_right[i])
+        pl_, om_l = pair_of(l)
+        pr_, om_r = pair_of(r)
+        slots = pl_ + pr_
+        for s in slots:
+            if s >= 0 and not is_leaf[s] and s not in fat_id:
+                fat_id[s] = len(order)
+                order.append(s)
+                level.append(level[qi] + 1)
+        slots_all.append(slots)
+        oms.append((order_meta(l, r), om_l, om_r))
+        qi += 1
+
+    ni = len(order)
+    nodes = np.zeros((ni, NODE_STRIDE), np.float32)
+    enc = np.zeros((ni, 5), np.int32)
+    for row, (slots, (om_s, om_l, om_r)) in enumerate(zip(slots_all, oms)):
+        for k, s in enumerate(slots):
+            if s < 0:
+                continue
+            nodes[row, 6 * k: 6 * k + 3] = node_lo[s]
+            nodes[row, 6 * k + 3: 6 * k + 6] = node_hi[s]
+            if is_leaf[s]:
+                enc[row, k] = int(slot_first[s]) * (1 << META_SHIFT) + int(slot_count[s])
+            else:
+                enc[row, k] = fat_id[s] * (1 << META_SHIFT) + INNER_FIELD
+        enc[row, 4] = om_s * 36 + om_l * 6 + om_r
+    nodes[:, 24:29] = enc.view(np.float32)
+    stack_depth = 3 * max(level) + 1
+    if stack_depth > STACK_MAX:
+        raise ValueError(f"fat4 tree needs a {stack_depth}-entry stack; the kernels hold {STACK_MAX}")
+    return {"fat4nodes": nodes, "tris": tris, "stack_depth": stack_depth}
+
+
+def empty_tables() -> dict:
+    """Tables of a scene without triangles: every trace misses."""
+    return {
+        "fat4nodes": np.zeros((0, NODE_STRIDE), np.float32),
+        "tris": np.zeros((1, 1, TRI_STRIDE), np.float32),
+        "stack_depth": 1,
+    }
+
+
+def tables_to(packed: dict, device) -> dict:
+    """Move packed numpy tables onto a device."""
+    return {
+        "fat4nodes": torch.as_tensor(packed["fat4nodes"]).to(device).contiguous(),
+        "tris": torch.as_tensor(packed["tris"]).to(device).contiguous(),
+        "stack_depth": int(packed["stack_depth"]),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch traversal (the reference for the kernels; the CPU path)
+# ---------------------------------------------------------------------------
+
+
+class _Rays:
+    """Per-ray constants of the slab test (subset-indexable)."""
+
+    def __init__(self, o, d):
+        self.o = o
+        self.d = d
+        sign = torch.where(d >= 0.0, 1.0, -1.0)
+        self.inv = sign / torch.clamp(torch.abs(d), min=1e-12)
+        self.oi = o * self.inv
+        self.pos = d >= 0.0
+
+
+def _dead(o, d):
+    return (torch.abs(o[:, 0]) >= DEAD_RAY_ORIGIN) | (
+        (torch.abs(d[:, 0]) + torch.abs(d[:, 1])) + torch.abs(d[:, 2]) < 1e-6
+    )
+
+
+def _slab4(rows, inv, oi, cap):
+    """Slab test of the 4 slot boxes of node rows [M, 32] -> [M, 4] bool."""
+    box = rows[:, :24].reshape(-1, 4, 6)
+    ix, iy, iz = inv[:, 0:1], inv[:, 1:2], inv[:, 2:3]
+    oix, oiy, oiz = oi[:, 0:1], oi[:, 1:2], oi[:, 2:3]
+    t0x = box[..., 0] * ix - oix
+    t1x = box[..., 3] * ix - oix
+    t0y = box[..., 1] * iy - oiy
+    t1y = box[..., 4] * iy - oiy
+    t0z = box[..., 2] * iz - oiz
+    t1z = box[..., 5] * iz - oiz
+    tenter = torch.maximum(
+        torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)), torch.minimum(t0z, t1z)
+    )
+    texit = torch.minimum(
+        torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)), torch.maximum(t0z, t1z)
+    )
+    return (tenter <= texit) & (texit > EPS) & (tenter < cap[:, None])
+
+
+def _moller(tv, o, d):
+    """Moller-Trumbore of rays [M] against slot triangles tv [M, G, 10];
+    returns (valid [M, G] without the t cap, t, u, v)."""
+    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    v0x, v0y, v0z = tv[..., 0], tv[..., 1], tv[..., 2]
+    e1x, e1y, e1z = tv[..., 3], tv[..., 4], tv[..., 5]
+    e2x, e2y, e2z = tv[..., 6], tv[..., 7], tv[..., 8]
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    inv_det = torch.where(torch.abs(det) < EPS, 0.0, 1.0 / torch.where(det == 0.0, 1.0, det))
+    tvx = ox - v0x
+    tvy = oy - v0y
+    tvz = oz - v0z
+    u = (tvx * px + tvy * py + tvz * pz) * inv_det
+    qx = tvy * e1z - tvz * e1y
+    qy = tvz * e1x - tvx * e1z
+    qz = tvx * e1y - tvy * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    valid = (torch.abs(det) >= EPS) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > EPS)
+    return valid, t, u, v
+
+
+def _decode(rows):
+    enc = rows[:, 24:29].contiguous().view(torch.int32).long()
+    field = enc[:, :4] & 31
+    meta = enc[:, :4] >> META_SHIFT
+    om = enc[:, 4]
+    return field, meta, om // 36, (om % 36) // 6, om % 6
+
+
+def _near_first(om, pos):
+    return torch.gather(pos, 1, (om >> 1)[:, None])[:, 0] == ((om & 1) == 1)
+
+
+def _push_order(meta_k, om_s, om_l, om_r, pos):
+    """Slot indices [M, 4] in push order (last pushed = popped first)."""
+    ns = _near_first(om_s, pos)
+    nl = _near_first(om_l, pos)
+    nr = _near_first(om_r, pos)
+    ln, lf = torch.where(nl, 0, 1), torch.where(nl, 1, 0)
+    rn, rf = torch.where(nr, 2, 3), torch.where(nr, 3, 2)
+    return torch.stack(
+        [torch.where(ns, rf, lf), torch.where(ns, rn, ln), torch.where(ns, lf, rf), torch.where(ns, ln, rn)],
+        dim=1,
+    )
+
+
+class _Walk:
+    """Per-ray stacks for the lockstep plain traversal."""
+
+    def __init__(self, n, depth, start, device):
+        self.stack = torch.zeros((n, max(depth, 1)), dtype=torch.long, device=device)
+        self.sp = start.long()
+
+    def active(self):
+        return torch.nonzero(self.sp > 0)[:, 0]
+
+    def pop(self, ids):
+        self.sp[ids] -= 1
+        return self.stack[ids, self.sp[ids]]
+
+    def push(self, ids, node_ids, ok):
+        if bool(ok.any()):
+            sel = ids[ok]
+            self.stack[sel, self.sp[sel]] = node_ids[ok]
+            self.sp[sel] += 1
+
+
+def _leaf_slots(field_k, meta_k, hit_k):
+    """Yield (local index, slot id) per slot iteration s of leaves hit."""
+    leaf = hit_k & (field_k > 0) & (field_k <= MAX_LEAF_FIELD)
+    loc = torch.nonzero(leaf)[:, 0]
+    if loc.numel() == 0:
+        return
+    nsl = field_k[loc]
+    for s in range(int(nsl.max())):
+        sel = loc[nsl > s]
+        yield sel, meta_k[sel] + s
+
+
+def _closest_step(tv, o, d, bt, btri, bu, bv, gate=None):
+    """Sequential-in-G closest update of rays vs a slot (strict t < best)."""
+    valid, t, u, v = _moller(tv, o, d)
+    if gate is not None:
+        valid = valid & gate[:, None]
+    ids = tv[..., 9].contiguous().view(torch.int32)
+    for g in range(tv.shape[1]):
+        take = valid[:, g] & (t[:, g] < bt)
+        bt = torch.where(take, t[:, g], bt)
+        btri = torch.where(take, ids[:, g], btri)
+        bu = torch.where(take, u[:, g], bu)
+        bv = torch.where(take, v[:, g], bv)
+    return bt, btri, bu, bv
+
+
+def _miss_t(btri, bt):
+    return torch.where(btri >= 0, bt, torch.full_like(bt, float("inf")))
+
+
+def _as_cap(t_max, n, ref):
+    return torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=ref.device), (n,)).clone()
+
+
+def _count(work, visits=0, box_tests=0, tri_tests=0):
+    """Accumulate the traversal work of a plain run (for a kernel's bound)."""
+    if work is not None:
+        work["visits"] = work.get("visits", 0) + visits
+        work["box_tests"] = work.get("box_tests", 0) + box_tests
+        work["tri_tests"] = work.get("tri_tests", 0) + tri_tests
+
+
+def closest_hit_fat4_plain(o, d, tables: dict, t_max=float("inf"), work=None):
+    """Plain version of K1: dict(t, tri, u, v) per ray (t inf and tri -1 on a
+    miss).  `work`, if a dict, receives the node visits, box tests and
+    triangle tests this run needed."""
+    n = o.shape[0]
+    nodes, tris = tables["fat4nodes"], tables["tris"]
+    bt = _as_cap(t_max, n, o)
+    btri = torch.full((n,), -1, dtype=torch.int32, device=o.device)
+    bu = torch.zeros(n, dtype=torch.float32, device=o.device)
+    bv = torch.zeros_like(bu)
+    live = ~_dead(o, d) & (bt > EPS) & (nodes.shape[0] > 0)
+    walk = _Walk(n, tables["stack_depth"], live, o.device)
+    rays = _Rays(o, d)
+    while True:
+        ids = walk.active()
+        if ids.numel() == 0:
+            break
+        rows = nodes[walk.pop(ids)]
+        box = _slab4(rows, rays.inv[ids], rays.oi[ids], bt[ids])
+        _count(work, ids.numel(), 4 * ids.numel())
+        field, meta, om_s, om_l, om_r = _decode(rows)
+        for k in range(4):
+            for sel, slot in _leaf_slots(field[:, k], meta[:, k], box[:, k]):
+                r = ids[sel]
+                _count(work, tri_tests=sel.numel() * tris.shape[1])
+                bt[r], btri[r], bu[r], bv[r] = _closest_step(
+                    tris[slot], o[r], d[r], bt[r], btri[r], bu[r], bv[r]
+                )
+        ok = box & (field >= INNER_FIELD)
+        order = _push_order(meta, om_s, om_l, om_r, rays.pos[ids])
+        for i in range(4):
+            k = order[:, i:i + 1]
+            walk.push(ids, torch.gather(meta, 1, k)[:, 0], torch.gather(ok, 1, k)[:, 0])
+    return {"t": _miss_t(btri, bt), "tri": btri, "u": bu, "v": bv}
+
+
+def any_hit_fat4_plain(o, d, tables: dict, t_max=float("inf"), work=None):
+    """Plain version of K3: occluded [N] bool."""
+    n = o.shape[0]
+    nodes, tris = tables["fat4nodes"], tables["tris"]
+    cap = _as_cap(t_max, n, o)
+    occ = torch.zeros(n, dtype=torch.bool, device=o.device)
+    live = ~_dead(o, d) & (cap > EPS) & (nodes.shape[0] > 0)
+    walk = _Walk(n, tables["stack_depth"], live, o.device)
+    rays = _Rays(o, d)
+    while True:
+        ids = walk.active()
+        if ids.numel() == 0:
+            break
+        rows = nodes[walk.pop(ids)]
+        box = _slab4(rows, rays.inv[ids], rays.oi[ids], cap[ids])
+        _count(work, ids.numel(), 4 * ids.numel())
+        field, meta, _, _, _ = _decode(rows)
+        for k in range(4):
+            for sel, slot in _leaf_slots(field[:, k], meta[:, k], box[:, k]):
+                r = ids[sel]
+                _count(work, tri_tests=sel.numel() * tris.shape[1])
+                valid, t, _, _ = _moller(tris[slot], o[r], d[r])
+                occ[r] |= (valid & (t < cap[r][:, None])).any(dim=1)
+        ok = box & (field >= INNER_FIELD) & ~occ[ids][:, None]
+        for k in range(4):
+            walk.push(ids, meta[:, k], ok[:, k])
+        walk.sp[occ] = 0
+    return occ
+
+
+def shadow_closest_fat4_plain(o, b, l, tables: dict, t_max_b=float("inf"), t_max_l=float("inf"),
+                              work=None):
+    """Plain version of K2: (hit dict along b, occluded [N] along l)."""
+    n = o.shape[0]
+    nodes, tris = tables["fat4nodes"], tables["tris"]
+    bt = _as_cap(t_max_b, n, o)
+    cap_l = _as_cap(t_max_l, n, o)
+    btri = torch.full((n,), -1, dtype=torch.int32, device=o.device)
+    bu = torch.zeros(n, dtype=torch.float32, device=o.device)
+    bv = torch.zeros_like(bu)
+    occ = torch.zeros(n, dtype=torch.bool, device=o.device)
+    has_nodes = nodes.shape[0] > 0
+    live_b = ~_dead(o, b) & (bt > EPS) & has_nodes
+    live_l = ~_dead(o, l) & (cap_l > EPS) & has_nodes
+    walk = _Walk(n, tables["stack_depth"], live_b | live_l, o.device)
+    rb, rl = _Rays(o, b), _Rays(o, l)
+    while True:
+        ids = walk.active()
+        if ids.numel() == 0:
+            break
+        rows = nodes[walk.pop(ids)]
+        gate_b, gate_l = live_b[ids], live_l[ids] & ~occ[ids]
+        box_b = _slab4(rows, rb.inv[ids], rb.oi[ids], bt[ids]) & gate_b[:, None]
+        box_l = _slab4(rows, rl.inv[ids], rl.oi[ids], cap_l[ids]) & gate_l[:, None]
+        _count(work, ids.numel(), 4 * (int(gate_b.sum()) + int(gate_l.sum())))
+        field, meta, om_s, om_l, om_r = _decode(rows)
+        for k in range(4):
+            for sel, slot in _leaf_slots(field[:, k], meta[:, k], box_b[:, k] | box_l[:, k]):
+                r = ids[sel]
+                gates = int(box_b[sel, k].sum()) + int(box_l[sel, k].sum())
+                _count(work, tri_tests=gates * tris.shape[1])
+                tv = tris[slot]
+                bt[r], btri[r], bu[r], bv[r] = _closest_step(
+                    tv, o[r], b[r], bt[r], btri[r], bu[r], bv[r], gate=box_b[sel, k]
+                )
+                valid, t, _, _ = _moller(tv, o[r], l[r])
+                hit_l = (valid & (t < cap_l[r][:, None])).any(dim=1) & box_l[sel, k]
+                occ[r] |= hit_l
+        ok = (box_b | box_l) & (field >= INNER_FIELD)
+        order = _push_order(meta, om_s, om_l, om_r, rb.pos[ids])
+        for i in range(4):
+            k = order[:, i:i + 1]
+            walk.push(ids, torch.gather(meta, 1, k)[:, 0], torch.gather(ok, 1, k)[:, 0])
+    return {"t": _miss_t(btri, bt), "tri": btri, "u": bu, "v": bv}, occ
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_rays(*arrs):
+    n = arrs[0].shape[0]
+    dev = arrs[0].device
+    for a in arrs:
+        if a.dtype != torch.float32 or a.dim() != 2 or a.shape != (n, 3) or a.device != dev:
+            raise ValueError("rays must be float32 [N, 3] tensors on one device")
+    return n, dev
+
+
+def _check_tables(tables, dev):
+    for k in ("fat4nodes", "tris"):
+        t = tables[k]
+        if t.dtype != torch.float32 or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"table {k} must be a contiguous float32 tensor on {dev}")
+    if tables["fat4nodes"].dim() != 2 or tables["fat4nodes"].shape[1] != NODE_STRIDE:
+        raise ValueError("fat4nodes must be [n_nodes, 32]")
+    if tables["tris"].dim() != 3 or tables["tris"].shape[2] != TRI_STRIDE:
+        raise ValueError("tris must be [n_slots, G, 10]")
+    if tables["stack_depth"] > STACK_MAX:
+        raise ValueError("traversal stack deeper than the kernels hold")
+
+
+def _cap_arg(t_max, n, dev):
+    """(tensor, stride) for a scalar or per-ray [N] cap."""
+    t = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
+    if t.dim() == 0:
+        return t.reshape(1).contiguous(), 0
+    if t.shape != (n,):
+        raise ValueError("t_max must be a scalar or [N]")
+    return t.contiguous(), 1
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _use_kernel(dev) -> bool:
+    """CPU tensors take the plain version, CUDA tensors the kernel."""
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return True
+
+
+def _nothing_to_trace(n, tables) -> bool:
+    """No rays, or a scene without triangles: every record is a miss and
+    no kernel is launched."""
+    return n == 0 or tables["fat4nodes"].shape[0] == 0
+
+
+def _misses(n, dev):
+    return {
+        "t": torch.full((n,), float("inf"), dtype=torch.float32, device=dev),
+        "tri": torch.full((n,), -1, dtype=torch.int32, device=dev),
+        "u": torch.zeros(n, dtype=torch.float32, device=dev),
+        "v": torch.zeros(n, dtype=torch.float32, device=dev),
+    }
+
+
+def _hit_out(n, dev):
+    return {
+        "t": torch.empty(n, dtype=torch.float32, device=dev),
+        "tri": torch.empty(n, dtype=torch.int32, device=dev),
+        "u": torch.empty(n, dtype=torch.float32, device=dev),
+        "v": torch.empty(n, dtype=torch.float32, device=dev),
+    }
+
+
+def closest_hit_fat4(o, d, tables: dict, t_max=float("inf")):
+    """K1: closest hit over the fat4 tables -> dict(t, tri, u, v)."""
+    n, dev = _check_rays(o, d)
+    _check_tables(tables, dev)
+    if not _use_kernel(dev):
+        return closest_hit_fat4_plain(o, d, tables, t_max)
+    if _nothing_to_trace(n, tables):
+        return _misses(n, dev)
+    o, d = o.contiguous(), d.contiguous()
+    cap, stride = _cap_arg(t_max, n, dev)
+    out = _hit_out(n, dev)
+    check(native().lib.nb_closest_fat4(
+        _ptr(o), _ptr(d), _ptr(cap), stride, _ptr(tables["fat4nodes"]), _ptr(tables["tris"]),
+        int(tables["tris"].shape[1]), n, _ptr(out["t"]), _ptr(out["tri"]), _ptr(out["u"]),
+        _ptr(out["v"]), _stream(),
+    ), "closest_fat4")
+    closest_hit_fat4.launches += 1
+    return out
+
+
+def any_hit_fat4(o, d, tables: dict, t_max=float("inf")):
+    """K3: occlusion within t_max -> occluded [N] bool."""
+    n, dev = _check_rays(o, d)
+    _check_tables(tables, dev)
+    if not _use_kernel(dev):
+        return any_hit_fat4_plain(o, d, tables, t_max)
+    if _nothing_to_trace(n, tables):
+        return torch.zeros(n, dtype=torch.bool, device=dev)
+    o, d = o.contiguous(), d.contiguous()
+    cap, stride = _cap_arg(t_max, n, dev)
+    occ = torch.empty(n, dtype=torch.bool, device=dev)
+    check(native().lib.nb_any_fat4(
+        _ptr(o), _ptr(d), _ptr(cap), stride, _ptr(tables["fat4nodes"]), _ptr(tables["tris"]),
+        int(tables["tris"].shape[1]), n, _ptr(occ), _stream(),
+    ), "any_fat4")
+    any_hit_fat4.launches += 1
+    return occ
+
+
+def shadow_closest_fat4(o, b, l, tables: dict, t_max_b=float("inf"), t_max_l=float("inf")):
+    """K2: one walk for the bounce ray b (closest hit under t_max_b) and the
+    shadow ray l (occlusion under t_max_l) from the same origins.
+    Returns (hit dict, occluded [N])."""
+    n, dev = _check_rays(o, b, l)
+    _check_tables(tables, dev)
+    if not _use_kernel(dev):
+        return shadow_closest_fat4_plain(o, b, l, tables, t_max_b, t_max_l)
+    if _nothing_to_trace(n, tables):
+        return _misses(n, dev), torch.zeros(n, dtype=torch.bool, device=dev)
+    o, b, l = o.contiguous(), b.contiguous(), l.contiguous()
+    cap_b, sb = _cap_arg(t_max_b, n, dev)
+    cap_l, sl = _cap_arg(t_max_l, n, dev)
+    hit = _hit_out(n, dev)
+    occ = torch.empty(n, dtype=torch.bool, device=dev)
+    check(native().lib.nb_combo_fat4(
+        _ptr(o), _ptr(b), _ptr(l), _ptr(cap_b), sb, _ptr(cap_l), sl, _ptr(tables["fat4nodes"]),
+        _ptr(tables["tris"]), int(tables["tris"].shape[1]), n, _ptr(hit["t"]), _ptr(hit["tri"]),
+        _ptr(hit["u"]), _ptr(hit["v"]), _ptr(occ), _stream(),
+    ), "combo_fat4")
+    shadow_closest_fat4.launches += 1
+    return hit, occ
+
+
+closest_hit_fat4.launches = 0
+any_hit_fat4.launches = 0
+shadow_closest_fat4.launches = 0
