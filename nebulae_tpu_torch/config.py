@@ -70,9 +70,14 @@ class RenderConfig:
     chunk_mode: str = "auto"
 
 
+# SunLight's fields, which are its trainable leaves (JAX's pytree leaves).
+SUN_LEAVES = ("direction", "radiance", "tan_half_angle", "sky_color")
+
+
 @dataclass
 class SunLight:
-    """Lighting parameters as tensors on one device."""
+    """Lighting parameters as tensors on one device.  The four fields are
+    the trainable leaves, in SUN_LEAVES order."""
 
     direction: torch.Tensor  # [3] unit vector toward the sun
     radiance: torch.Tensor  # [3]
@@ -90,6 +95,8 @@ class SunLight:
             sky_color=torch.tensor([0.3, 0.45, 0.7], dtype=torch.float32, device=device),
         )
 
+    def leaves(self) -> tuple:
+        return tuple(getattr(self, k) for k in SUN_LEAVES)
+
     def to(self, device) -> "SunLight":
-        return SunLight(*(torch.as_tensor(getattr(self, k), dtype=torch.float32).to(device)
-                          for k in ("direction", "radiance", "tan_half_angle", "sky_color")))
+        return SunLight(*(torch.as_tensor(t, dtype=torch.float32).to(device) for t in self.leaves()))

@@ -11,26 +11,35 @@ from __future__ import annotations
 
 import torch
 
-from nebulae_tpu_torch.core.math import build_orthonormal_basis, cross, dot, ipow, luminance, normalize
+from nebulae_tpu_torch.core.math import (
+    build_orthonormal_basis,
+    clip,
+    cross,
+    dot,
+    ipow,
+    luminance,
+    maximum,
+    normalize,
+)
 
 F0_DIELECTRIC = 0.04
 PI = 3.14159265358979
 
 
 def fresnel_schlick(cos_theta, f0):
-    c = torch.clamp(cos_theta, 0.0, 1.0)
+    c = clip(cos_theta, 0.0, 1.0)
     return f0 + (1.0 - f0) * ipow(1.0 - c, 5)
 
 
 def ggx_ndf(n_dot_h, alpha):
     a2 = alpha * alpha
     d = n_dot_h * n_dot_h * (a2 - 1.0) + 1.0
-    return a2 / torch.clamp(PI * d * d, min=1e-8)
+    return a2 / maximum(PI * d * d, 1e-8)
 
 
 def smith_g1(n_dot_x, alpha):
     k = alpha * 0.5
-    return n_dot_x / torch.clamp(n_dot_x * (1.0 - k) + k, min=1e-8)
+    return n_dot_x / maximum(n_dot_x * (1.0 - k) + k, 1e-8)
 
 
 def base_f0(albedo, metalness):
@@ -40,16 +49,16 @@ def base_f0(albedo, metalness):
 def eval_brdf(n, v, l, albedo, roughness, metalness):
     """f(v, l) without the cosine; n, v, l [..., 3] unit, pointing away."""
     h = normalize(v + l)
-    n_dot_l = torch.clamp(dot(n, l, False), 0.0, 1.0)
-    n_dot_v = torch.clamp(dot(n, v, False), 0.0, 1.0)
-    n_dot_h = torch.clamp(dot(n, h, False), 0.0, 1.0)
-    v_dot_h = torch.clamp(dot(v, h, False), 0.0, 1.0)
-    alpha = torch.clamp(roughness * roughness, min=1e-3)
+    n_dot_l = clip(dot(n, l, False), 0.0, 1.0)
+    n_dot_v = clip(dot(n, v, False), 0.0, 1.0)
+    n_dot_h = clip(dot(n, h, False), 0.0, 1.0)
+    v_dot_h = clip(dot(v, h, False), 0.0, 1.0)
+    alpha = maximum(roughness * roughness, 1e-3)
     f0 = base_f0(albedo, metalness)
     fres = fresnel_schlick(v_dot_h[..., None], f0)
     d = ggx_ndf(n_dot_h, alpha)
     g = smith_g1(n_dot_l, alpha) * smith_g1(n_dot_v, alpha)
-    spec = fres * (d * g / torch.clamp(4.0 * n_dot_l * n_dot_v, min=1e-8))[..., None]
+    spec = fres * (d * g / maximum(4.0 * n_dot_l * n_dot_v, 1e-8))[..., None]
     kd = (1.0 - fres) * (1.0 - metalness[..., None])
     diffuse = kd * albedo / PI
     return diffuse + spec
@@ -64,8 +73,8 @@ def specular_probability(albedo, metalness, n_dot_v):
     fres = fresnel_schlick(n_dot_v[..., None], f0)
     s = luminance(fres)
     d = luminance(diffuse_reflectance(albedo, metalness))
-    p = s / torch.clamp(s + d, min=1e-8)
-    return torch.clamp(p, 0.1, 0.9)
+    p = s / maximum(s + d, 1e-8)
+    return clip(p, 0.1, 0.9)
 
 
 def diffuse_probability(albedo, metalness, n_dot_v):
@@ -127,15 +136,15 @@ def sample_vndf_ggx(u1, u2, n, v, roughness):
 
 def smith_g1_exact(n_dot_x, alpha):
     a2 = alpha * alpha
-    c = torch.clamp(n_dot_x, 1e-6, 1.0)
+    c = clip(n_dot_x, 1e-6, 1.0)
     return 2.0 * c / (c + torch.sqrt(a2 + (1.0 - a2) * c * c))
 
 
 def vndf_pdf(n, v, h, roughness):
     """Solid-angle pdf of reflect(-v, h) under sample_vndf_ggx."""
     alpha = roughness * roughness
-    n_dot_v = torch.clamp(dot(n, v, False), 1e-6, 1.0)
-    n_dot_h = torch.clamp(dot(n, h, False), 0.0, 1.0)
+    n_dot_v = clip(dot(n, v, False), 1e-6, 1.0)
+    n_dot_h = clip(dot(n, h, False), 0.0, 1.0)
     return smith_g1_exact(n_dot_v, alpha) * ggx_ndf(n_dot_h, alpha) / (4.0 * n_dot_v)
 
 

@@ -24,6 +24,33 @@ def powf(x, e: float):
     return torch.pow(x, torch.tensor(e, dtype=x.dtype))
 
 
+def _tracks_grad(x) -> bool:
+    return x.requires_grad and torch.is_grad_enabled()
+
+
+def _bound(x, c: float):
+    """c as a 0-d CPU tensor, which a binary op takes beside a tensor on any
+    device as a scalar: no host-to-device copy, so no stream sync."""
+    return torch.tensor(c, dtype=x.dtype)
+
+
+def clip(x, lo: float, hi: float):
+    """jnp.clip with JAX's gradient: at x == lo or x == hi the gradient is
+    1/2 (torch.clamp gives 1 there).  Built from torch.maximum/minimum
+    against tensor bounds, which split a tie the same way; a tensor that
+    carries no gradient takes plain torch.clamp (the same values)."""
+    if not _tracks_grad(x):
+        return torch.clamp(x, lo, hi)
+    return torch.minimum(torch.maximum(x, _bound(x, lo)), _bound(x, hi))
+
+
+def maximum(x, c: float):
+    """jnp.maximum(x, c) with JAX's gradient (1/2 at x == c)."""
+    if not _tracks_grad(x):
+        return torch.clamp(x, min=c)
+    return torch.maximum(x, _bound(x, c))
+
+
 def normalize(v, eps: float = 1e-12):
     n = v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1] + v[..., 2] * v[..., 2]
     return v * powf(n + eps, -0.5)[..., None]

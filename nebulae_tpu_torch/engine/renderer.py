@@ -56,13 +56,15 @@ def init_frame_state(cfg: RenderConfig, device) -> dict:
     }
 
 
-@torch.no_grad()
 def render_frame(scene: dict, tables: dict | None, sun: SunLight, cam: dict, state: dict,
                  cfg: RenderConfig, device=None):
-    """One forward frame.  `scene` (to_tensors of device_arrays), `tables`
-    (fat4 tables or None), `sun` and `cam` live on `device` (CUDA unless
-    "cpu" is asked for).  Returns (outputs, new_state): outputs hold 'ldr'
-    and, unless cfg.lean_outputs, 'hdr', 'denoised' and the G-buffer."""
+    """One frame.  `scene` (to_tensors of device_arrays), `tables` (fat4
+    tables or None), `sun` and `cam` live on `device` (CUDA unless "cpu" is
+    asked for).  Returns (outputs, new_state): outputs hold 'ldr' and,
+    unless cfg.lean_outputs, 'hdr', 'denoised' and the G-buffer.  Called
+    under grad with material tables or sun leaves that require it, the
+    outputs carry their gradients (hits and textures are detached, as in
+    JAX); `Renderer.render` calls it under no_grad."""
     dev = resolve_device(device)
     check_supported(cfg)
     w, h = cfg.width, cfg.height
@@ -180,6 +182,7 @@ class Renderer:
     def reset_history(self):
         self.state["reset_history"] = True
 
+    @torch.no_grad()
     def render(self, camera, sun: SunLight | None = None) -> dict:
         fingerprint = (
             tuple(np.asarray(camera.eye, np.float32).tolist())

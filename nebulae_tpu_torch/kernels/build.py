@@ -39,6 +39,7 @@ SIGNATURES = {
     "nb_combo_fat4": ([_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P], _I),
     "nb_any_fat4": ([_P, _P, _P, _I, _P, _P, _I, _I, _P, _P], _I),
     "nb_atrous_fwd": ([_P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _P, _P, _P], _I),
+    "nb_atrous_bwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _P, _P], _I),
     "nebulae_build_bvh": ([_P, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
                            _P, _P, _P, _P, _P, _P, _P], ctypes.c_int32),
 }

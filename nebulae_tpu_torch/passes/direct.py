@@ -6,7 +6,7 @@ import torch
 
 from nebulae_tpu_torch.core import brdf
 from nebulae_tpu_torch.core import rng as nrng
-from nebulae_tpu_torch.core.math import dot
+from nebulae_tpu_torch.core.math import clip, dot
 from nebulae_tpu_torch.tracer.sorting import DEAD_ORIGIN
 
 
@@ -17,7 +17,7 @@ def shade_direct(scene: dict, gbuf: dict, sun, any_fn, rng_state):
     rng_state, u1 = nrng.next_float(rng_state)
     rng_state, u2 = nrng.next_float(rng_state)
     l = brdf.sun_disk_sample(u1, u2, sun.direction[None, :], sun.tan_half_angle)
-    n_dot_l = torch.clamp(dot(n, l, False), 0.0, 1.0)
+    n_dot_l = clip(dot(n, l, False), 0.0, 1.0)
     f = brdf.eval_brdf(n, v, l, gbuf["albedo"], gbuf["roughness"], gbuf["metalness"])
     origin = brdf.offset_ray_origin(gbuf["position"], gbuf["normal_g"])
     shoot = gbuf["hit"] & (n_dot_l > 0.0)

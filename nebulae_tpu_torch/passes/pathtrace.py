@@ -18,10 +18,11 @@ import torch
 
 from nebulae_tpu_torch.core import brdf
 from nebulae_tpu_torch.core import rng as nrng
-from nebulae_tpu_torch.core.math import cross, dot, normalize
+from nebulae_tpu_torch.core.math import clip, cross, dot, normalize
 from nebulae_tpu_torch.core.surface import (
     bary_packed,
     f32_int,
+    gather_rows,
     has_textures,
     normal_mapped,
     sample_material_texels,
@@ -40,10 +41,10 @@ def nee_bounce_draws(surf, view, sun, alive, rng_state):
     rng_state, u1 = nrng.next_float(rng_state)
     rng_state, u2 = nrng.next_float(rng_state)
     l = brdf.sun_disk_sample(u1, u2, sun.direction[None, :], sun.tan_half_angle)
-    n_dot_l = torch.clamp(dot(surf["normal_s"], l, False), 0.0, 1.0)
+    n_dot_l = clip(dot(surf["normal_s"], l, False), 0.0, 1.0)
     f = brdf.eval_brdf(surf["normal_s"], view, l, surf["albedo"], surf["roughness"], surf["metalness"])
     rng_state, u_rr = nrng.next_float(rng_state)
-    n_dot_v = torch.clamp(dot(surf["normal_s"], view, False), 0.0, 1.0)
+    n_dot_v = clip(dot(surf["normal_s"], view, False), 0.0, 1.0)
     p_d = brdf.diffuse_probability(surf["albedo"], surf["metalness"], n_dot_v)
     rr_continue = u_rr < p_d
     rng_state, u3 = nrng.next_float(rng_state)
@@ -129,10 +130,10 @@ def nee_bounce_step(scene, pre, alive_bounce, closest_fn, cfg):
     m = torch.clamp(hit["mat"], 0, scene["mat_base_color"].shape[0] - 1)
     ns = torch.stack([hit["nsx"], hit["nsy"], hit["nsz"]], dim=-1)
     ng = torch.stack([hit["ngx"], hit["ngy"], hit["ngz"]], dim=-1)
-    base = scene["mat_base_color"][m]
-    rough = scene["mat_roughness"][m]
-    metal = scene["mat_metallic"][m]
-    emissive = scene["mat_emissive"][m]
+    base = gather_rows(scene["mat_base_color"], m)
+    rough = gather_rows(scene["mat_roughness"], m)
+    metal = gather_rows(scene["mat_metallic"], m)
+    emissive = gather_rows(scene["mat_emissive"], m)
     albedo = base[..., :3]
     if "tax" in hit:
         albedo = albedo * torch.stack([hit["tax"], hit["tay"], hit["taz"]], dim=-1)
@@ -144,8 +145,8 @@ def nee_bounce_step(scene, pre, alive_bounce, closest_fn, cfg):
         "normal_g": ng,
         "normal_s": ns,
         "albedo": albedo,
-        "roughness": torch.clamp(rough, 0.02, 1.0),
-        "metalness": torch.clamp(metal, 0.0, 1.0),
+        "roughness": clip(rough, 0.02, 1.0),
+        "metalness": clip(metal, 0.0, 1.0),
         "emissive": emissive,
     }
     return vis, hit["found"], hit["t"], surf
@@ -156,7 +157,7 @@ def _nee_direct(scene, surf, view, sun, alive, any_fn, rng_state, cfg):
     rng_state, u1 = nrng.next_float(rng_state)
     rng_state, u2 = nrng.next_float(rng_state)
     l = brdf.sun_disk_sample(u1, u2, sun.direction[None, :], sun.tan_half_angle)
-    n_dot_l = torch.clamp(dot(surf["normal_s"], l, False), 0.0, 1.0)
+    n_dot_l = clip(dot(surf["normal_s"], l, False), 0.0, 1.0)
     f = brdf.eval_brdf(surf["normal_s"], view, l, surf["albedo"], surf["roughness"], surf["metalness"])
     origin = brdf.offset_ray_origin(surf["position"], surf["normal_g"])
     shoot = alive & (n_dot_l > 0.0)

@@ -1,7 +1,7 @@
 """SVGF denoiser: temporal accumulation, reprojection and the a-trous cascade.
 
 Counterpart of `nebulae_tpu/passes/svgf.py`; images are [H, W, C].  Each
-a-trous pass is kernel K4 (`kernels/svgf.py`).  Where JAX skipped work
+a-trous pass is kernel K4 forward and K5 backward (`kernels/svgf.py`).  Where JAX skipped work
 under `lax.cond` (the spatial-variance bootstrap once every pixel has 4
 frames of history) the port takes the same branch on the host.
 """
@@ -71,9 +71,12 @@ def svgf_temporal(radiance, depth, normal, hist_radiance, hist_depth, hist_norma
 
 
 def svgf_atrous(radiance, variance, depth, normal, cfg):
-    """The a-trous cascade: passes at dilation 1, 2, 4, ... (kernel K4);
-    variance stays fixed across passes."""
+    """The a-trous cascade: passes at dilation 1, 2, 4, ... (kernel K4,
+    differentiated by K5); variance stays fixed across passes.  As in JAX,
+    the edge-stop guides are constants of the gradient: only radiance
+    gets one."""
     phi = (cfg.svgf_phi_color, cfg.svgf_phi_normal, cfg.svgf_phi_depth)
+    variance, depth, normal = variance.detach(), depth.detach(), normal.detach()
     out = radiance
     for i in range(cfg.svgf_atrous_passes):
         out, _ = atrous_step(out, variance, depth, normal, 1 << i, phi)
