@@ -19,8 +19,20 @@ Phases (any failure raises and exits non-zero):
               steps with params held fixed and the frame state threaded, the
               launch counts read around them, one step profiled; then a
               64x64 step on the GPU against the CPU through the plain versions
-  7. summary  one {"kernels": [...]} line, then the device line last
-Imports nothing of JAX or of the JAX package.
+  7. large    scenes past the single-table gate.  The ~247k-triangle
+              large_scene on each chunk_mode (auto -> one table, subtree,
+              tri, paged): K6b (the slot-gated K1-K3 chained over the tri
+              chunks) and K8 (one-node closest and any) against their plain
+              versions at the phase-4 shapes, then 1 warm-up and 3 timed
+              1080p frames per route, held against auto's frame.  The ~2M
+              huge_scene under auto (the paged route, K6a): its kernels
+              against their plain versions at full shape, 1 warm-up and 3
+              timed frames, one profiled frame, and 1 warm-up and 3 timed
+              train steps.  A 12-triangle box with tracer="pallas" (the
+              BVH root is a leaf): a 1080p frame through K8, held against
+              the brute-force frame
+  8. summary  one {"kernels": [...]} line, then the device line last
+Each phase logs its seconds.  Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -165,7 +177,42 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 
 def table_bytes(tables) -> int:
-    return sum(tables[k].numel() * tables[k].element_size() for k in ("fat4nodes", "tris"))
+    """Bytes of the traversal tensors in a tables dict, a chunk list
+    included; a tensor that several chunks share counts once."""
+    import torch
+
+    seen = {}
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            seen[(x.data_ptr(), x.numel())] = x.numel() * x.element_size()
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, list):
+            for v in x:
+                walk(v)
+
+    walk(tables)
+    return sum(seen.values())
+
+
+def jax_layout_bytes(tables) -> int:
+    """The same tables' bytes in the JAX package's layout (rows padded to
+    128; each triangle chunk padded on its own)."""
+    from nebulae_tpu_torch.kernels import chunks as kc
+
+    def rows(n):
+        return max(-(-n // 128), 1) * 128
+
+    if "chunks" in tables:
+        return sum(jax_layout_bytes(c) for c in tables["chunks"])
+    if "tri_chunks" in tables:
+        return rows(tables["fat4nodes"].shape[0]) * 128 + sum(
+            rows(c["tris"].shape[0]) * c["tris"].shape[1] * 40 for c in tables["tri_chunks"])
+    if "nodes" in tables:
+        return rows(tables["nodes"].shape[0]) * 32 + rows(tables["tris"].shape[0]) * tables["tris"].shape[1] * 40
+    return kc.jax_table_bytes(tables)
 
 
 def trace_bound(n_rays, tables, work, ray_bytes, out_bytes, n_dirs=1):
@@ -173,6 +220,135 @@ def trace_bound(n_rays, tables, work, ray_bytes, out_bytes, n_dirs=1):
     n_ops = (OPS_BOX * work["box_tests"] + OPS_TRI * work["tri_tests"]
              + OPS_RAY * n_dirs * n_rays)
     return bound_ms(n_bytes, n_ops)
+
+
+class PhaseClock:
+    """Logs each phase's seconds."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def done(self, name: str) -> None:
+        now = time.perf_counter()
+        log(f"phase {name}: {now - self.t:.1f} s")
+        self.t = now
+
+
+def path_rays(scene, closest, sun, cam):
+    """1080p primary rays, and N_RANDOM bounce and shadow rays from primary
+    surface points as at a path vertex, sorted by ray_sort_key (the shapes
+    the main path gives the kernels)."""
+    import torch
+
+    from nebulae_tpu_torch.core import brdf
+    from nebulae_tpu_torch.passes.gbuffer import camera_rays, render_gbuffer
+    from nebulae_tpu_torch.tracer.sorting import ray_sort_key
+
+    o, d = camera_rays(cam, WIDTH, HEIGHT)
+    o, d = o.contiguous(), d.contiguous()
+    gbuf = render_gbuffer(scene, closest, o, d)
+    gen = torch.Generator(device=o.device).manual_seed(1234)
+    hit_idx = torch.nonzero(gbuf["hit"])[:, 0]
+    pick = hit_idx[torch.randint(0, hit_idx.numel(), (N_RANDOM,), device=o.device, generator=gen)]
+    origin = brdf.offset_ray_origin(gbuf["position"][pick], gbuf["normal_g"][pick])
+    u = torch.rand((4, N_RANDOM), device=o.device, generator=gen)
+    bdir = brdf.cosine_hemisphere_sample(u[0], u[1], gbuf["normal_s"][pick])
+    ldir = brdf.sun_disk_sample(u[2], u[3], sun.direction[None, :], sun.tan_half_angle)
+    order = torch.argsort(ray_sort_key(origin, bdir, scene["aabb_min"], scene["aabb_max"]))
+    ro, rb, rl = (x[order].contiguous() for x in (origin, bdir, ldir))
+    return (o, d), (ro, rb, rl), gbuf, gen
+
+
+class Held:
+    """A kernel held against its plain version: max error, kernel ms
+    (median of 7), plain ms, bound ms, summed over the passes of a chain."""
+
+    def __init__(self):
+        self.err = self.ms = self.plain_ms = self.bound = 0.0
+        self.by = None
+        self.work = {}
+
+    def add(self, err, ms, plain_ms, bound):
+        self.err = max(self.err, err)
+        self.ms += ms
+        self.plain_ms += plain_ms
+        self.bound += bound[0]
+        self.by = bound[1]
+
+    def entry(self) -> dict:
+        return dict(max_abs_err=self.err, ms=self.ms, plain_ms=self.plain_ms, bound_ms=self.bound,
+                    bound_by=self.by)
+
+
+def _hit_err(hk, hp, what):
+    import torch
+
+    assert torch.equal(hk["tri"], hp["tri"]), f"{what}: tri differs from its plain version"
+    m = hp["tri"] >= 0
+    for k in ("t", "u", "v"):
+        torch.testing.assert_close(hk[k][m], hp[k][m], rtol=1e-6, atol=0.0)
+    return max(float((hk[k][m] - hp[k][m]).abs().max()) if bool(m.any()) else 0.0 for k in ("t", "u", "v"))
+
+
+def hold_closest(held, what, kernel, plain, o, d, tables, cap=float("inf")):
+    """kernel(o, d, cap) against plain(o, d, cap, work): tri equal, t/u/v
+    within rtol 1e-6.  Returns the kernel's hits."""
+    hk = kernel(o, d, cap)
+    work = {}
+    t_plain = once_ms(lambda: work.update(res=plain(o, d, cap, work)))
+    err = _hit_err(hk, work.pop("res"), what)
+    ms = timed_ms(lambda: kernel(o, d, cap))
+    cap_bytes = 4 if hasattr(cap, "shape") else 0
+    held.add(err, ms, t_plain, trace_bound(o.shape[0], tables, work, 24 + cap_bytes, 16))
+    _merge_work(held.work, work)
+    return hk
+
+
+def hold_any(held, what, kernel, plain, o, d, tables, cap=float("inf")):
+    """As hold_closest for occlusion: occ equal.  Returns the kernel's occ."""
+    import torch
+
+    occ_k = kernel(o, d, cap)
+    work = {}
+    t_plain = once_ms(lambda: work.update(res=plain(o, d, cap, work)))
+    occ_p = work.pop("res")
+    assert torch.equal(occ_k, occ_p), f"{what}: occ differs from its plain version"
+    ms = timed_ms(lambda: kernel(o, d, cap))
+    cap_bytes = 4 if hasattr(cap, "shape") else 0
+    held.add(0.0, ms, t_plain, trace_bound(o.shape[0], tables, work, 24 + cap_bytes, 1))
+    _merge_work(held.work, work)
+    return occ_k
+
+
+def hold_combo(held, what, kernel, plain, o, b, l, tables, cap_b=float("inf"), cap_l=float("inf")):
+    """As hold_closest for the fused walk: tri and occ equal."""
+    import torch
+
+    hk, occ_k = kernel(o, b, l, cap_b, cap_l)
+    work = {}
+    t_plain = once_ms(lambda: work.update(res=plain(o, b, l, cap_b, cap_l, work)))
+    hp, occ_p = work.pop("res")
+    err = _hit_err(hk, hp, what)
+    assert torch.equal(occ_k, occ_p), f"{what}: occ differs from its plain version"
+    ms = timed_ms(lambda: kernel(o, b, l, cap_b, cap_l))
+    cap_bytes = 4 * hasattr(cap_b, "shape") + 4 * hasattr(cap_l, "shape")
+    held.add(err, ms, t_plain, trace_bound(o.shape[0], tables, work, 36 + cap_bytes, 17, n_dirs=2))
+    _merge_work(held.work, work)
+    return hk, occ_k
+
+
+def _merge_work(into, work):
+    for k, v in work.items():
+        into[k] = into.get(k, 0) + v
+
+
+def _merge_hits(best, hit):
+    import torch
+
+    if best is None:
+        return hit
+    take = hit["tri"] >= 0
+    return {k: torch.where(take, hit[k], best[k]) for k in ("t", "tri", "u", "v")}
 
 
 def _recording_adam():
@@ -284,6 +460,344 @@ def small_train_check(fs) -> None:
         + json.dumps({k: round(v, 6) for k, v in cos.items()}))
 
 
+# The triangle-chunk budget for the 247k scene's "tri" renderer.  JAX's
+# 13 MB holds its 246,528 triangles in one chunk by pack_bvh_tri_chunks'
+# count (slots x G >= triangles), so "tri" falls back to subtree chunks in
+# both packages; 10 MB cuts the triangles into two chunks.
+TRI_BUDGET_LARGE = 10 * 1024 * 1024
+LARGE_ROUTES = {"auto": "single", "subtree": "subtree", "tri": "tri", "paged": "paged"}
+
+
+def new_wrappers() -> dict:
+    """The kernels line's entries added by the large-scene phase, by the
+    wrapper that counts each one's launches."""
+    from nebulae_tpu_torch.kernels import trace as kt
+
+    return {
+        "closest_fat4_slots": kt.closest_hit_fat4_slots,
+        "shadow_closest_fat4_slots": kt.shadow_closest_fat4_slots,
+        "any_fat4_slots": kt.any_hit_fat4_slots,
+        "closest_fat4_paged": kt.closest_hit_fat4_paged,
+        "shadow_closest_fat4_paged": kt.shadow_closest_fat4_paged,
+        "any_fat4_paged": kt.any_hit_fat4_paged,
+        "closest_node": kt.closest_hit_node,
+        "any_node": kt.any_hit_node,
+    }
+
+
+def _read_launches(launches, n, names):
+    """Copy the counts of `names` from a run's counts n (keyed by wrapper
+    name) and fail if any of them did not launch."""
+    new = new_wrappers()
+    for name in names:
+        launches[name] = n[new[name].__name__]
+    missing = [name for name in names if launches[name] == 0]
+    assert not missing, f"kernels not launched on their route: {missing}"
+
+
+def _zero(wrappers):
+    for fn in wrappers.values():
+        fn.launches = 0
+
+
+def _frames(renderer, cam_obj, wrappers, n_timed=3):
+    """1 warm-up and n_timed timed frames with the launch counts read
+    around them: (outputs of the last frame, mean ms, frame ms, launches)."""
+    import torch
+
+    _zero(wrappers)
+    out = renderer.render(cam_obj)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n_timed):
+        t0 = time.perf_counter()
+        out = renderer.render(cam_obj)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    ldr = out["ldr"]
+    assert ldr.shape == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(ldr).all()), "non-finite frame"
+    assert float(ldr.std()) > 1e-3, "constant frame"
+    return out, sum(times) / len(times), times, launches
+
+
+def _slot_fns(c):
+    """K6b's kernels and plain versions on tri chunk c, as hold_chain takes them."""
+    from nebulae_tpu_torch.kernels import trace as kt
+
+    sr = (c["slot_lo"], c["slot_hi"])
+    return (lambda a, b, t: kt.closest_hit_fat4_slots(a, b, c, t),
+            lambda a, b, t, w: kt.closest_hit_fat4_plain(a, b, c, t, work=w, slot_range=sr),
+            lambda a, b, l_, tb, tl: kt.shadow_closest_fat4_slots(a, b, l_, c, tb, tl),
+            lambda a, b, l_, tb, tl, w: kt.shadow_closest_fat4_plain(a, b, l_, c, tb, tl, work=w, slot_range=sr),
+            lambda a, b, t: kt.any_hit_fat4_slots(a, b, c, t),
+            lambda a, b, t, w: kt.any_hit_fat4_plain(a, b, c, t, work=w, slot_range=sr))
+
+
+def _chunk_fns(c):
+    """K1-K3 on a fat4 subtree chunk, K8 on a single-leaf one (its fused
+    walk is K8 closest then K8 any)."""
+    from nebulae_tpu_torch.kernels import trace as kt
+
+    if "fat4nodes" in c:
+        return (lambda a, b, t: kt.closest_hit_fat4(a, b, c, t),
+                lambda a, b, t, w: kt.closest_hit_fat4_plain(a, b, c, t, work=w),
+                lambda a, b, l_, tb, tl: kt.shadow_closest_fat4(a, b, l_, c, tb, tl),
+                lambda a, b, l_, tb, tl, w: kt.shadow_closest_fat4_plain(a, b, l_, c, tb, tl, work=w),
+                lambda a, b, t: kt.any_hit_fat4(a, b, c, t),
+                lambda a, b, t, w: kt.any_hit_fat4_plain(a, b, c, t, work=w))
+    return (lambda a, b, t: kt.closest_hit_node(a, b, c, t),
+            lambda a, b, t, w: kt.closest_hit_node_plain(a, b, c, t, work=w),
+            lambda a, b, l_, tb, tl: (kt.closest_hit_node(a, b, c, tb), kt.any_hit_node(a, l_, c, tl)),
+            lambda a, b, l_, tb, tl, w: (kt.closest_hit_node_plain(a, b, c, tb, work=w),
+                                         kt.any_hit_node_plain(a, l_, c, tl, work=w)),
+            lambda a, b, t: kt.any_hit_node(a, b, c, t),
+            lambda a, b, t, w: kt.any_hit_node_plain(a, b, c, t, work=w))
+
+
+def hold_chain(tag, chunks, fns, primary, secondary):
+    """Each chunk's closest (primary rays), fused (secondary rays) and any
+    (shadow rays) held against their plain versions under the caps the
+    chains give them: min(best t) for closest, a shadow cap of 0 once
+    occluded, occluded rays ejected before the next any pass.  Returns
+    three Held and the chains' (closest hits, fused hits, fused occ, any
+    occ)."""
+    import torch
+
+    from nebulae_tpu_torch.kernels import trace as kt
+
+    (o, d), (ro, rb, rl) = primary, secondary
+    held = (Held(), Held(), Held())
+    best = best_b = occ_l = occ = None
+    for c in chunks:
+        closest, closest_p, combo, combo_p, any_k, any_p = fns(c)
+        cap = float("inf") if best is None else best["t"]
+        best = _merge_hits(best, hold_closest(held[0], f"{tag} closest", closest, closest_p, o, d, c, cap))
+        cap_b = float("inf") if best_b is None else best_b["t"]
+        cap_l = float("inf") if occ_l is None else torch.where(occ_l, 0.0, float("inf"))
+        hb, ol = hold_combo(held[1], f"{tag} fused", combo, combo_p, ro, rb, rl, c, cap_b, cap_l)
+        best_b = _merge_hits(best_b, hb)
+        occ_l = ol if occ_l is None else occ_l | ol
+        o_live = ro if occ is None else torch.where(occ[:, None], 10.0 * kt.DEAD_RAY_ORIGIN, ro)
+        oc = hold_any(held[2], f"{tag} any", any_k, any_p, o_live, rl, c)
+        occ = oc if occ is None else occ | oc
+    return held, (best, best_b, occ_l, occ)
+
+
+def step_launches(renderer, cam, wrappers) -> dict:
+    """One 1080p train step with a renderer's tables and config: its
+    launch counts."""
+    import torch
+
+    from nebulae_tpu_torch.engine.renderer import init_frame_state
+    from nebulae_tpu_torch.engine.train import make_train_step, split_scene_params
+
+    params, frozen = split_scene_params(renderer.scene)
+    params["sun"] = renderer.sun
+    cfg = renderer.cfg
+    step, opt = make_train_step(cfg, frozen, renderer.tables, device=renderer.device)
+    target = torch.zeros((HEIGHT, WIDTH, 3), dtype=torch.float32, device=renderer.device)
+    _zero(wrappers)
+    _p, _o, _s, loss, _img = step(params, opt.init(params), cam, init_frame_state(cfg, renderer.device), target)
+    assert bool(torch.isfinite(loss)), "non-finite train step"
+    return {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+
+
+def large_phase(base_cfg) -> tuple[dict, dict]:
+    """Phase 7: scenes past the single-table gate.  Returns (report
+    entries, launch counts) of K6a, K6b and K8."""
+    import dataclasses
+
+    import torch
+
+    from nebulae_tpu_torch.bvh.cbuilder import build_bvh_native
+    from nebulae_tpu_torch.engine.renderer import Renderer
+    from nebulae_tpu_torch.kernels import chunks as kc
+    from nebulae_tpu_torch.kernels import svgf as ksvgf
+    from nebulae_tpu_torch.kernels import trace as kt
+    from nebulae_tpu_torch.passes.gbuffer import make_camera_arrays
+    from nebulae_tpu_torch.tracer.trace import make_tracer
+    from nebulae_tpu_torch.utils.testscenes import bench_camera, box_scene, huge_scene, large_scene
+
+    dev = torch.device("cuda")
+    report, launches = {}, {}
+    clock = PhaseClock()
+    wrappers = {f.__name__: f for f in kt.WRAPPERS}
+    wrappers["atrous_fwd"] = ksvgf.atrous_step
+
+    # 7a. The 247k scene on every chunk_mode.
+    fs = large_scene(seed=0)
+    bvh = build_bvh_native(fs.tri_pos, max_leaf=15)
+    cfg = dataclasses.replace(base_cfg, lean_outputs=False)
+    default_budget = kc.TRI_CHUNK_TABLE_BUDGET
+    log(f"large: {fs.num_triangles} triangles, {bvh.num_nodes} BVH nodes; at the default "
+        f"{default_budget} B budget pack_bvh_tri_chunks gives "
+        f"{kc.pack_bvh_tri_chunks(bvh, fs.tri_pos, cfg.bvh_tri_group)}")
+    renderers = {}
+    for mode, route in LARGE_ROUTES.items():
+        kc.TRI_CHUNK_TABLE_BUDGET = TRI_BUDGET_LARGE if mode == "tri" else default_budget
+        t0 = time.perf_counter()
+        r = Renderer(fs, dataclasses.replace(cfg, chunk_mode=mode), bvh=bvh)
+        setup = time.perf_counter() - t0
+        kc.TRI_CHUNK_TABLE_BUDGET = default_budget
+        n_chunks = len(r.tables.get("chunks", r.tables.get("tri_chunks", [])))
+        log(f"large: chunk_mode={mode} -> route {r.route}, {n_chunks} chunks, {table_bytes(r.tables)} B "
+            f"(JAX layout {jax_layout_bytes(r.tables)} B), set up in {setup:.2f} s")
+        assert r.route == route, f"chunk_mode={mode} took route {r.route}, expected {route}"
+        renderers[mode] = r
+    auto = renderers["auto"]
+    cam_obj = bench_camera(fs)
+    cam = make_camera_arrays(cam_obj, WIDTH, HEIGHT, dev)
+    (o, d), (ro, rb, rl), _, _ = path_rays(
+        auto.scene, lambda a, b: kt.closest_hit_fat4(a, b, auto.tables), auto.sun, cam)
+
+    # K6b: the gated K1-K3 chained over the tri route's chunks; K6c: K1-K3
+    # (or K8 on a single-leaf chunk) chained over the subtree chunks.
+    one = kt.closest_hit_fat4(o, d, auto.tables)
+    hs, os_ = kt.shadow_closest_fat4(ro, rb, rl, auto.tables)
+    occ_any = kt.any_hit_fat4(ro, rl, auto.tables)
+    for tag, mode, fns in (("K6b", "tri", _slot_fns), ("K6c", "subtree", _chunk_fns)):
+        chunks = renderers[mode].tables["tri_chunks" if mode == "tri" else "chunks"]
+        held, (best, best_b, occ_l, occ) = hold_chain(tag, chunks, fns, (o, d), (ro, rb, rl))
+        # The chains end where the single table does.
+        assert torch.equal(best["t"], one["t"]), f"{tag} closest chain differs from the single table"
+        assert torch.equal(best_b["t"], hs["t"]) and torch.equal(occ_l, os_), f"{tag} fused chain differs"
+        assert torch.equal(occ, occ_any), f"{tag} any chain differs"
+        for kind, h in zip(("closest", "shadow_closest", "any"), held):
+            if tag == "K6b":
+                report[f"{kind}_fat4_slots"] = h.entry()
+            log(f"{tag} {kind} over {len(chunks)} chunks: kernels {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, "
+                f"bound {h.bound:.4f} ms ({h.by}), max err {h.err:.3g}, work {h.work}")
+
+    # K8 over the same BVH in the one-node layout.
+    nodes = kt.tables_to(kt.pack_bvh_nodes(bvh, fs.tri_pos, cfg.bvh_tri_group), dev)
+    h8c, h8a = Held(), Held()
+    hit = hold_closest(h8c, "K8 closest", lambda a, b, t: kt.closest_hit_node(a, b, nodes, t),
+                       lambda a, b, t, w: kt.closest_hit_node_plain(a, b, nodes, t, work=w), o, d, nodes)
+    assert torch.equal(hit["t"], one["t"]), "K8 closest differs from K1 in t"
+    oc = hold_any(h8a, "K8 any", lambda a, b, t: kt.any_hit_node(a, b, nodes, t),
+                  lambda a, b, t, w: kt.any_hit_node_plain(a, b, nodes, t, work=w), ro, rl, nodes)
+    assert torch.equal(oc, occ_any), "K8 any differs from K3"
+    for name, h in (("closest_node", h8c), ("any_node", h8a)):
+        report[name] = h.entry()
+        log(f"K8 {name}: {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms ({h.by}), "
+            f"work {h.work}, stack depth {nodes['stack_depth']}")
+    # One trace of each kind through each route's tracer (chains included).
+    for mode, r in renderers.items():
+        closest, any_hit = make_tracer(r.scene, r.tables, r.cfg, device=dev)
+        ms = (timed_ms(lambda: closest(o, d)),
+              timed_ms(lambda: closest.combo(ro, rb, rl, float("inf"), float("inf"))),
+              timed_ms(lambda: any_hit(ro, rl)))
+        log(f"large trace {mode} ({r.route}): closest {ms[0]:.3f} ms (1080p), fused {ms[1]:.3f} ms, "
+            f"any {ms[2]:.3f} ms (2^21 rays)")
+    del o, d, ro, rb, rl, best, best_b, occ, occ_l, one, hs, os_, occ_any, nodes, hit, oc
+    clock.done("large 247k kernels")
+
+    # Frames on each route; tri, subtree and paged against auto's.
+    outs = {}
+    for mode, r in renderers.items():
+        out, mean_ms, times, n = _frames(r, cam_obj, wrappers)
+        outs[mode] = {k: out[k] for k in ("ldr", "hit")}
+        log(f"large frame {mode} ({r.route}): {mean_ms:.2f} ms/frame (frames {[round(t, 2) for t in times]}), "
+            f"launches {json.dumps({k: v for k, v in n.items() if v})}")
+        profile_frame(lambda: r.render(cam_obj), ("fat4_kernel", "atrous_fwd_kernel"), mean_ms,
+                      what=f"{mode} frame")
+        if mode == "tri":
+            _read_launches(launches, n, ("closest_fat4_slots", "shadow_closest_fat4_slots", "any_fat4_slots"))
+    for mode in ("tri", "subtree"):
+        log(f"large train step {mode}: launches {json.dumps(step_launches(renderers[mode], cam, wrappers))}")
+    ref = outs["auto"]
+    assert torch.equal(outs["paged"]["ldr"], ref["ldr"]), "paged frame differs from the single-table frame"
+    for mode in ("tri", "subtree"):
+        a = outs[mode]
+        assert torch.equal(a["hit"], ref["hit"]), f"{mode} hit mask differs"
+        close = torch.isclose(a["ldr"], ref["ldr"], rtol=1e-3, atol=1e-4).all(dim=-1).float().mean()
+        same = (a["ldr"] == ref["ldr"]).all(dim=-1).float().mean()
+        assert float(close) >= 0.99, f"{mode}: only {float(close):.4f} of pixels agree with auto"
+        log(f"large frame {mode}: {float(close):.6f} of pixels within rtol 1e-3 / atol 1e-4 of auto, "
+            f"{float(same):.6f} bit-identical")
+    del renderers, auto, outs, ref
+    clock.done("large 247k frames")
+
+    # 7b. The ~2M scene under auto: the paged route (K6a).
+    fs2 = huge_scene(seed=0)
+    t0 = time.perf_counter()
+    bvh2 = build_bvh_native(fs2.tri_pos, max_leaf=15)
+    r2 = Renderer(fs2, base_cfg, bvh=bvh2)
+    setup = time.perf_counter() - t0
+    log(f"huge: {fs2.num_triangles} triangles -> route {r2.route}, {table_bytes(r2.tables)} B "
+        f"(JAX layout {jax_layout_bytes(r2.tables)} B, gate {kc.SINGLE_TABLE_MAX_BYTES} B), "
+        f"stack depth {r2.tables['stack_depth']}, BVH and set-up {setup:.2f} s")
+    assert r2.route == "paged", f"the ~2M scene took route {r2.route}"
+    cam_obj2 = bench_camera(fs2)
+    cam2 = make_camera_arrays(cam_obj2, WIDTH, HEIGHT, dev)
+    (o, d), (ro, rb, rl), _, _ = path_rays(
+        r2.scene, lambda a, b: kt.closest_hit_fat4_paged(a, b, r2.tables), r2.sun, cam2)
+    tab = r2.tables
+    for name, fn in (
+        ("closest_fat4_paged", lambda h: hold_closest(
+            h, "K6a closest", lambda a, b, t: kt.closest_hit_fat4_paged(a, b, tab, t),
+            lambda a, b, t, w: kt.closest_hit_fat4_plain(a, b, tab, t, work=w), o, d, tab)),
+        ("shadow_closest_fat4_paged", lambda h: hold_combo(
+            h, "K6a combo", lambda a, b, l_, tb, tl: kt.shadow_closest_fat4_paged(a, b, l_, tab, tb, tl),
+            lambda a, b, l_, tb, tl, w: kt.shadow_closest_fat4_plain(a, b, l_, tab, tb, tl, work=w),
+            ro, rb, rl, tab)),
+        ("any_fat4_paged", lambda h: hold_any(
+            h, "K6a any", lambda a, b, t: kt.any_hit_fat4_paged(a, b, tab, t),
+            lambda a, b, t, w: kt.any_hit_fat4_plain(a, b, tab, t, work=w), ro, rl, tab)),
+    ):
+        h = Held()
+        fn(h)
+        report[name] = h.entry()
+        log(f"K6a {name}: kernel {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms "
+            f"({h.by}), max err {h.err:.3g}, work {h.work}")
+    del o, d, ro, rb, rl
+    clock.done("huge kernels")
+    paged = {"closest_fat4_paged": kt.closest_hit_fat4_paged,
+             "shadow_closest_fat4_paged": kt.shadow_closest_fat4_paged,
+             "any_fat4_paged": kt.any_hit_fat4_paged, "atrous_fwd": ksvgf.atrous_step}
+    torch.cuda.reset_peak_memory_stats()
+    out, mean_ms, times, n = _frames(r2, cam_obj2, wrappers)
+    rays = WIDTH * HEIGHT * (1 + SPP * (2 * BOUNCES - 1))
+    log(f"huge frame: {mean_ms:.2f} ms/frame (frames {[round(t, 2) for t in times]}), "
+        f"{rays / mean_ms / 1e3:.2f} Mrays/s, ldr mean {float(out['ldr'].mean()):.4f}, "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"launches {json.dumps({k: v for k, v in n.items() if v})}")
+    _read_launches(launches, n, ("closest_fat4_paged", "shadow_closest_fat4_paged", "any_fat4_paged"))
+    assert n["closest_hit_fat4"] == n["shadow_closest_fat4"] == n["any_hit_fat4"] == 0, "resident K1-K3 ran"
+    profile_frame(lambda: r2.render(cam_obj2), ("closest_fat4_kernel", "combo_fat4_kernel", "any_fat4_kernel",
+                                               "atrous_fwd_kernel"), mean_ms, what="huge frame")
+    del out
+    train_phase(r2, cam2, base_cfg, paged)
+    clock.done("huge frames and train")
+    del r2, fs2, bvh2
+
+    # 7c. A BVH whose root is a leaf: the one-node route (K8) at 1080p.
+    box = box_scene()
+    cam_box = bench_camera(box)
+    rb8 = Renderer(box, dataclasses.replace(cfg, tracer="pallas"))
+    assert rb8.route == "node", rb8.route
+    out, mean_ms, times, n = _frames(rb8, cam_box, wrappers, n_timed=1)
+    _read_launches(launches, n, ("closest_node", "any_node"))
+    # Against brute force: a ray grazing the box's silhouette can pass the
+    # triangle test and fail the leaf's slab test (or the reverse), so a few
+    # of the 2M hit decisions may differ.
+    # Its second frame, as _frames renders two (SVGF accumulates).
+    rbf = Renderer(box, dataclasses.replace(cfg, tracer="bruteforce"))
+    rbf.render(cam_box)
+    brute = rbf.render(cam_box)
+    same_hit = (out["hit"] == brute["hit"]).float().mean()
+    close = torch.isclose(out["ldr"], brute["ldr"], rtol=1e-3, atol=1e-4).all(dim=-1).float().mean()
+    assert float(same_hit) >= 0.999 and float(close) >= 0.99, "K8 frame differs from brute force"
+    log(f"box frame (one-node route): {mean_ms:.2f} ms, hit {float(out['hit'].float().mean()):.3f}; against "
+        f"brute force {int((out['hit'] != brute['hit']).sum())} hit decisions differ, {float(close):.6f} "
+        f"of pixels agree; launches {json.dumps({k: v for k, v in n.items() if v})}")
+    cam_box_arrays = make_camera_arrays(cam_box, WIDTH, HEIGHT, dev)
+    log(f"box train step: launches {json.dumps(step_launches(rb8, cam_box_arrays, wrappers))}")
+    clock.done("box frame")
+    return report, launches
+
+
 def main() -> int:
     import torch
 
@@ -297,16 +811,15 @@ def main() -> int:
 
     from nebulae_tpu_torch.bvh.cbuilder import build_bvh_native
     from nebulae_tpu_torch.config import RenderConfig
-    from nebulae_tpu_torch.core import brdf
     from nebulae_tpu_torch.engine.renderer import Renderer
     from nebulae_tpu_torch.kernels import svgf as ksvgf
     from nebulae_tpu_torch.kernels import trace as kt
     from nebulae_tpu_torch.kernels.build import native
-    from nebulae_tpu_torch.passes.gbuffer import camera_rays, make_camera_arrays, render_gbuffer
-    from nebulae_tpu_torch.tracer.sorting import ray_sort_key
+    from nebulae_tpu_torch.passes.gbuffer import make_camera_arrays
     from nebulae_tpu_torch.utils.testscenes import bench_camera, bench_scene, textured_scene
 
     # 1. device
+    clock = PhaseClock()
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -318,8 +831,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 2. build
+    clock.done("device")
     lib = native(verbose=True)
     log(f"build: {lib.build_seconds:.1f} s -> {lib.path.name}")
+    clock.done("build")
 
     # 3. scene
     t0 = time.perf_counter()
@@ -342,67 +857,36 @@ def main() -> int:
     scene = renderer.scene
     cam_obj = bench_camera(fs)
     cam = make_camera_arrays(cam_obj, WIDTH, HEIGHT, dev)
+    clock.done("scene")
 
     # 4. kernels against their plain versions, at the main path's shapes
     report = {}
-    o, d = camera_rays(cam, WIDTH, HEIGHT)
-    o, d = o.contiguous(), d.contiguous()
+    (o, d), (ro, rb, rl), gbuf, gen = path_rays(
+        scene, lambda a, b: kt.closest_hit_fat4(a, b, tables), renderer.sun, cam)
     n_pix = o.shape[0]
-    hit_k = kt.closest_hit_fat4(o, d, tables)
-    work = {}
-    t_plain = once_ms(lambda: work.update(res=kt.closest_hit_fat4_plain(o, d, tables, work=work)))
-    hit_p = work.pop("res")
-    torch.cuda.synchronize()
-    assert torch.equal(hit_k["tri"], hit_p["tri"]), "K1 tri differs from its plain version"
-    m = hit_p["tri"] >= 0
-    for k in ("t", "u", "v"):
-        torch.testing.assert_close(hit_k[k][m], hit_p[k][m], rtol=1e-6, atol=0.0)
-    err = max(float((hit_k[k][m] - hit_p[k][m]).abs().max()) for k in ("t", "u", "v"))
-    ms = timed_ms(lambda: kt.closest_hit_fat4(o, d, tables))
-    b_ms, b_by = trace_bound(n_pix, tables, work, 24, 16)
-    report["closest_fat4"] = dict(max_abs_err=err, ms=ms, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by)
-    log(f"K1 closest: {n_pix} rays, hit {float(m.float().mean()):.3f}, kernel {ms:.3f} ms, "
-        f"plain {t_plain:.1f} ms, bound {b_ms:.4f} ms ({b_by}), max err {err:.3g}, work {work}")
+    h = Held()
+    hit = hold_closest(h, "K1", lambda a, b, t: kt.closest_hit_fat4(a, b, tables, t),
+                       lambda a, b, t, w: kt.closest_hit_fat4_plain(a, b, tables, t, work=w), o, d, tables)
+    report["closest_fat4"] = h.entry()
+    log(f"K1 closest: {n_pix} rays, hit {float((hit['tri'] >= 0).float().mean()):.3f}, kernel {h.ms:.3f} ms, "
+        f"plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms ({h.by}), max err {h.err:.3g}, work {h.work}")
 
     # Bounce and shadow rays from primary surface points, as at a path vertex.
-    gbuf = render_gbuffer(scene, lambda a, b: kt.closest_hit_fat4(a, b, tables), o, d)
-    gen = torch.Generator(device=dev).manual_seed(1234)
-    hit_idx = torch.nonzero(gbuf["hit"])[:, 0]
-    pick = hit_idx[torch.randint(0, hit_idx.numel(), (N_RANDOM,), device=dev, generator=gen)]
-    origin = brdf.offset_ray_origin(gbuf["position"][pick], gbuf["normal_g"][pick])
-    u = torch.rand((4, N_RANDOM), device=dev, generator=gen)
-    bdir = brdf.cosine_hemisphere_sample(u[0], u[1], gbuf["normal_s"][pick])
-    ldir = brdf.sun_disk_sample(u[2], u[3], renderer.sun.direction[None, :], renderer.sun.tan_half_angle)
-    order = torch.argsort(ray_sort_key(origin, bdir, scene["aabb_min"], scene["aabb_max"]))
-    ro, rb, rl = (x[order].contiguous() for x in (origin, bdir, ldir))
+    h = Held()
+    hit, occ = hold_combo(h, "K2", lambda a, b, l_, tb, tl: kt.shadow_closest_fat4(a, b, l_, tables, tb, tl),
+                          lambda a, b, l_, tb, tl, w: kt.shadow_closest_fat4_plain(a, b, l_, tables, tb, tl, work=w),
+                          ro, rb, rl, tables)
+    report["shadow_closest_fat4"] = h.entry()
+    log(f"K2 combo: {N_RANDOM} rays, bounce hit {float((hit['tri'] >= 0).float().mean()):.3f}, occluded "
+        f"{float(occ.float().mean()):.3f}, kernel {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, "
+        f"bound {h.bound:.4f} ms ({h.by}), max err {h.err:.3g}, work {h.work}")
 
-    hk, occ_k = kt.shadow_closest_fat4(ro, rb, rl, tables)
-    work = {}
-    t_plain = once_ms(lambda: work.update(res=kt.shadow_closest_fat4_plain(ro, rb, rl, tables, work=work)))
-    hp, occ_p = work.pop("res")
-    assert torch.equal(hk["tri"], hp["tri"]) and torch.equal(occ_k, occ_p), "K2 differs from its plain version"
-    m = hp["tri"] >= 0
-    for k in ("t", "u", "v"):
-        torch.testing.assert_close(hk[k][m], hp[k][m], rtol=1e-6, atol=0.0)
-    err = max(float((hk[k][m] - hp[k][m]).abs().max()) for k in ("t", "u", "v"))
-    ms = timed_ms(lambda: kt.shadow_closest_fat4(ro, rb, rl, tables))
-    b_ms, b_by = trace_bound(N_RANDOM, tables, work, 36, 17, n_dirs=2)
-    report["shadow_closest_fat4"] = dict(max_abs_err=err, ms=ms, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by)
-    log(f"K2 combo: {N_RANDOM} rays, bounce hit {float(m.float().mean()):.3f}, occluded "
-        f"{float(occ_p.float().mean()):.3f}, kernel {ms:.3f} ms, plain {t_plain:.1f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}), max err {err:.3g}, work {work}")
-
-    occ_k = kt.any_hit_fat4(ro, rl, tables)
-    work = {}
-    t_plain = once_ms(lambda: work.update(res=kt.any_hit_fat4_plain(ro, rl, tables, work=work)))
-    occ_p = work.pop("res")
-    assert torch.equal(occ_k, occ_p), "K3 differs from its plain version"
-    ms = timed_ms(lambda: kt.any_hit_fat4(ro, rl, tables))
-    b_ms, b_by = trace_bound(N_RANDOM, tables, work, 24, 1)
-    err = float((occ_k.float() - occ_p.float()).abs().max())
-    report["any_fat4"] = dict(max_abs_err=err, ms=ms, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by)
-    log(f"K3 any: {N_RANDOM} rays, occluded {float(occ_p.float().mean()):.3f}, kernel {ms:.3f} ms, "
-        f"plain {t_plain:.1f} ms, bound {b_ms:.4f} ms ({b_by}), work {work}")
+    h = Held()
+    occ = hold_any(h, "K3", lambda a, b, t: kt.any_hit_fat4(a, b, tables, t),
+                   lambda a, b, t, w: kt.any_hit_fat4_plain(a, b, tables, t, work=w), ro, rl, tables)
+    report["any_fat4"] = h.entry()
+    log(f"K3 any: {N_RANDOM} rays, occluded {float(occ.float().mean()):.3f}, kernel {h.ms:.3f} ms, "
+        f"plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms ({h.by}), work {h.work}")
 
     # K4 on a 1080p frame's guidance buffers with noisy radiance.
     rad = (gbuf["albedo"] * torch.rand((n_pix, 1), device=dev, generator=gen) * 4.0).reshape(HEIGHT, WIDTH, 3)
@@ -469,7 +953,8 @@ def main() -> int:
                                rtol=0.0, atol=0.0)
     log("K5 through autograd: output requires grad, backward launched K5, same result")
     del x, out_k, w_k, g_k, g_auto, y, res
-    del hit_k, hit_p, hk, hp, gbuf, ro, rb, rl, origin, bdir, ldir, pick, o, d
+    del hit, occ, gbuf, ro, rb, rl, o, d
+    clock.done("kernels")
 
     # 5. slice: the main path, with every launch count read around it
     wrappers = {
@@ -518,21 +1003,46 @@ def main() -> int:
         assert float(close) >= 0.99, f"small frame {k}: only {float(close):.4f} of pixels agree"
     log(f"small frame: GPU agrees with the CPU plain path (ldr mean |d| "
         f"{float((out_g['ldr'].cpu() - out_c['ldr']).abs().mean()):.3g})")
+    clock.done("slice")
 
     # 6. train: the inverse-rendering step at the same width
     del out, ldr
     train_launches = train_phase(renderer, cam, cfg, wrappers)
     small_train_check(textured_scene(seed=0))
+    clock.done("train")
 
-    # 7. summary
+    # 7. large: scenes past the single-table gate, every chunk_mode route
+    del renderer, scene, tables
+    torch.cuda.empty_cache()
+    large_report, large_launches = large_phase(cfg)
+    report.update(large_report)
+    launches.update(large_launches)
+    clock.t = time.perf_counter()
+
+    # 8. summary
     sources = {
         "closest_fat4": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1202"),
         "shadow_closest_fat4": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1415"),
         "any_fat4": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1311"),
         "atrous_fwd": ("nebulae_tpu_torch/csrc/atrous.cu", "nebulae_tpu/kernels/pallas_svgf.py:81"),
         "atrous_bwd": ("nebulae_tpu_torch/csrc/atrous.cu", "nebulae_tpu/kernels/pallas_svgf.py:221"),
+        # K6b: the slot_range builds, launched by the tri-chunk walks.
+        "closest_fat4_slots": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:374"),
+        "shadow_closest_fat4_slots": ("nebulae_tpu_torch/csrc/trace.cu",
+                                      "nebulae_tpu/kernels/pallas_trace.py:408"),
+        "any_fat4_slots": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:393"),
+        # K6a: the paged=True builds (_paged_fetch, :1184).
+        "closest_fat4_paged": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1382"),
+        "shadow_closest_fat4_paged": ("nebulae_tpu_torch/csrc/trace.cu",
+                                      "nebulae_tpu/kernels/pallas_trace.py:1542"),
+        "any_fat4_paged": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1401"),
+        # K8: the one-node kernels.
+        "closest_node": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:794"),
+        "any_node": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:881"),
     }
-    # K1-K4 counted over the forward frames, K5 over the train steps.
+    # K1-K4 counted over the forward frames, K5 over the train steps; K6b
+    # over the 247k tri route's frames, K6a over the ~2M scene's frames, K8
+    # over the box scene's frame.
     launches["atrous_bwd"] = train_launches["atrous_bwd"]
     kernels = []
     for name, (src, replaces) in sources.items():
@@ -543,6 +1053,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None,
         })
+    clock.done("summary")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

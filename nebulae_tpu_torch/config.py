@@ -2,9 +2,11 @@
 
 `RenderConfig` mirrors `nebulae_tpu.config.RenderConfig` field for field,
 with the same defaults (a test checks both).  Several fields only choose a
-TPU strategy (chunk_mode, bucket_scheduling, bucket_schedule, bvh_tri_group,
+TPU strategy (bucket_scheduling, bucket_schedule, bvh_tri_group,
 sort_segments, svgf_pallas, bvh_wide); the port accepts them and they do
-not change its output.  `SunLight` holds tensors on one device.
+not change its output.  chunk_mode picks the traversal tables' route as in
+JAX (engine/renderer.py::pack_scene_tables) and does not change the image
+either.  `SunLight` holds tensors on one device.
 """
 
 from __future__ import annotations
@@ -51,8 +53,8 @@ class RenderConfig:
     nrc_unroll_query: bool = False
     nrc_debug: str | None = None
     lean_outputs: bool = False
-    # "auto" | "bruteforce" | "pallas" (the fat4 kernels K1-K3); "bvh" is
-    # the JAX skip-link walk and is not ported.
+    # "auto" | "bruteforce" | "pallas" (the traversal kernels of the
+    # tables' route); "bvh" is the JAX skip-link walk and is not ported.
     tracer: str = "auto"
     # Order the live lanes of each bounce by ray_sort_key before tracing
     # (coherence only: per-ray results do not depend on it).

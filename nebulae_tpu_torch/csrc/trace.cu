@@ -1,9 +1,18 @@
-// Fat4 BVH traversal kernels K1-K3: closest hit, fused shadow+bounce, any hit.
+// BVH traversal kernels: fat4 closest hit, fused shadow+bounce and any hit
+// (K1-K3, each also built with a leaf slot gate: K6b), and the one-node
+// closest and any hit (K8).
 //
 // Replaces the Pallas packet kernels in nebulae_tpu/kernels/pallas_trace.py:
 //   K1 _make_closest_fat4_kernel (pallas_closest_hit_fat4)
 //   K2 _make_combo_fat4_kernel   (pallas_shadow_closest_fat4)
 //   K3 _make_any_fat4_kernel     (pallas_any_hit_fat4)
+//   K6b the same three with slot_range=(lo, hi) (_leaf_gate), which walk the
+//       whole tree but intersect only leaves whose first slot lies in
+//       [lo, hi), reading row first - lo of a triangle chunk
+//   K6a the paged=True builds: on the GPU the triangle table stays in device
+//       memory and the caches do the paging, so the paged route runs K1-K3
+//   K8 _closest_kernel / _any_kernel (pallas_closest_hit / pallas_any_hit),
+//       one BVH2 node per visit over pack_bvh_for_pallas's rows
 // They compute the same hit records over the same fat4 tables (grandchild
 // boxes per node, G triangles per leaf slot, precomputed v0/e1/e2) with the
 // same slab and Moller-Trumbore arithmetic (EPS = 1e-7, strict t < best).
@@ -17,7 +26,9 @@
 // Bound: on the H100 these kernels are latency bound on dependent node and
 // triangle loads (pointer chasing), not on DRAM bandwidth or FLOPs: the
 // ~8 MB tables of a 139k-triangle scene stay in the 50 MB L2, and each ray
-// needs a few hundred FLOPs per visited node.  The design keeps every load
+// needs a few hundred FLOPs per visited node.  A ~2M-triangle scene packs to
+// ~110 MB, past the L2: there the walk also waits on device memory, which
+// chip_smoke.py measures on the paged route.  The design keeps every load
 // a contiguous row (a node is 128 bytes, a triangle 40) read through the
 // read-only path, and relies on the caller sorting rays for coherence so
 // that neighbouring threads walk the same rows.  Warp divergence is the
@@ -151,12 +162,28 @@ __device__ __forceinline__ bool is_leaf(int field) {
   return field > 0 && field <= kMaxLeafField;
 }
 
+// Leaf residency.  AllSlots is the single-table case and compiles to no
+// code; SlotRange is _leaf_gate: a leaf is intersected only when its first
+// slot lies in [lo, hi), at row first - lo of the chunk's triangle table.
+struct AllSlots {
+  __device__ __forceinline__ bool resident(int) const { return true; }
+  __device__ __forceinline__ int row(int first) const { return first; }
+};
+
+struct SlotRange {
+  int lo, hi;
+  __device__ __forceinline__ bool resident(int first) const { return first >= lo && first < hi; }
+  __device__ __forceinline__ int row(int first) const { return first - lo; }
+};
+
+template <class Gate>
 __global__ void closest_fat4_kernel(const float* __restrict__ o, const float* __restrict__ d,
                                     const float* __restrict__ tmax, int tmax_stride,
                                     const float* __restrict__ nodes,
                                     const float* __restrict__ tris, int G, int n,
                                     float* __restrict__ t_out, int32_t* __restrict__ tri_out,
-                                    float* __restrict__ u_out, float* __restrict__ v_out) {
+                                    float* __restrict__ u_out, float* __restrict__ v_out,
+                                    Gate gate) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Ray r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1], d[3 * i + 2]);
@@ -174,9 +201,10 @@ __global__ void closest_fat4_kernel(const float* __restrict__ o, const float* __
       for (int k = 0; k < 4; ++k) box[k] = slab(row, k, r, bt);
       Fields f = decode(row);
       for (int k = 0; k < 4; ++k) {
-        if (!(box[k] && is_leaf(f.field[k]))) continue;
+        if (!(box[k] && is_leaf(f.field[k]) && gate.resident(f.meta[k]))) continue;
+        int first = gate.row(f.meta[k]);
         for (int s = 0; s < f.field[k]; ++s) {
-          const float* slot = tris + (static_cast<int64_t>(f.meta[k]) + s) * G * kTriStride;
+          const float* slot = tris + (static_cast<int64_t>(first) + s) * G * kTriStride;
           for (int g = 0; g < G; ++g) {
             const float* tv = slot + g * kTriStride;
             float t, u, v;
@@ -201,6 +229,7 @@ __global__ void closest_fat4_kernel(const float* __restrict__ o, const float* __
   v_out[i] = bv;
 }
 
+template <class Gate>
 __global__ void combo_fat4_kernel(const float* __restrict__ o, const float* __restrict__ b,
                                   const float* __restrict__ l, const float* __restrict__ tmax_b,
                                   int sb, const float* __restrict__ tmax_l, int sl,
@@ -208,7 +237,7 @@ __global__ void combo_fat4_kernel(const float* __restrict__ o, const float* __re
                                   const float* __restrict__ tris, int G, int n,
                                   float* __restrict__ t_out, int32_t* __restrict__ tri_out,
                                   float* __restrict__ u_out, float* __restrict__ v_out,
-                                  bool* __restrict__ occ_out) {
+                                  bool* __restrict__ occ_out, Gate gate) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
@@ -235,9 +264,11 @@ __global__ void combo_fat4_kernel(const float* __restrict__ o, const float* __re
       }
       Fields f = decode(row);
       for (int k = 0; k < 4; ++k) {
-        if (!((box_b[k] || box_l[k]) && is_leaf(f.field[k]))) continue;
+        bool tested = box_b[k] || box_l[k];
+        if (!(tested && is_leaf(f.field[k]) && gate.resident(f.meta[k]))) continue;
+        int first = gate.row(f.meta[k]);
         for (int s = 0; s < f.field[k]; ++s) {
-          const float* slot = tris + (static_cast<int64_t>(f.meta[k]) + s) * G * kTriStride;
+          const float* slot = tris + (static_cast<int64_t>(first) + s) * G * kTriStride;
           for (int g = 0; g < G; ++g) {
             const float* tv = slot + g * kTriStride;
             float t, u, v;
@@ -264,11 +295,12 @@ __global__ void combo_fat4_kernel(const float* __restrict__ o, const float* __re
   occ_out[i] = occ;
 }
 
+template <class Gate>
 __global__ void any_fat4_kernel(const float* __restrict__ o, const float* __restrict__ d,
                                 const float* __restrict__ tmax, int tmax_stride,
                                 const float* __restrict__ nodes,
                                 const float* __restrict__ tris, int G, int n,
-                                bool* __restrict__ occ_out) {
+                                bool* __restrict__ occ_out, Gate gate) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Ray r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1], d[3 * i + 2]);
@@ -285,9 +317,10 @@ __global__ void any_fat4_kernel(const float* __restrict__ o, const float* __rest
       for (int k = 0; k < 4; ++k) box[k] = slab(row, k, r, cap);
       Fields f = decode(row);
       for (int k = 0; k < 4 && !occ; ++k) {
-        if (!(box[k] && is_leaf(f.field[k]))) continue;
+        if (!(box[k] && is_leaf(f.field[k]) && gate.resident(f.meta[k]))) continue;
+        int first = gate.row(f.meta[k]);
         for (int s = 0; s < f.field[k] && !occ; ++s) {
-          const float* slot = tris + (static_cast<int64_t>(f.meta[k]) + s) * G * kTriStride;
+          const float* slot = tris + (static_cast<int64_t>(first) + s) * G * kTriStride;
           for (int g = 0; g < G; ++g) {
             float t, u, v;
             if (moller(slot + g * kTriStride, r, cap, t, u, v)) {
@@ -306,18 +339,118 @@ __global__ void any_fat4_kernel(const float* __restrict__ o, const float* __rest
   occ_out[i] = occ;
 }
 
+// K8: one BVH2 node per visit over rows [n, 8] f32: lo.xyz, hi.xyz, then
+// enc as int32 bits (leaf: first_slot*32 + slots; inner: right*32 + 16 +
+// axis*2 + left_is_lower, left child = node + 1).  A node's own box is
+// tested when it is popped; a leaf then intersects its slots.
+constexpr int kOneNodeStride = 8;
+
+__global__ void closest_node_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                                    const float* __restrict__ tmax, int tmax_stride,
+                                    const float* __restrict__ nodes,
+                                    const float* __restrict__ tris, int G, int n,
+                                    float* __restrict__ t_out, int32_t* __restrict__ tri_out,
+                                    float* __restrict__ u_out, float* __restrict__ v_out) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Ray r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1], d[3 * i + 2]);
+  float bt = tmax[i * tmax_stride];
+  int btri = -1;
+  float bu = 0.0f, bv = 0.0f;
+  if (!is_dead(r.ox, r.dx, r.dy, r.dz) && bt > kEps) {
+    int stack[kStackMax];
+    int sp = 0;
+    stack[sp++] = 0;
+    while (sp > 0) {
+      int node = stack[--sp];
+      const float* row = nodes + static_cast<int64_t>(node) * kOneNodeStride;
+      if (!slab(row, 0, r, bt)) continue;
+      int enc = __float_as_int(__ldg(row + 6));
+      int field = enc & 31, meta = enc >> 5;
+      if (is_leaf(field)) {
+        for (int s = 0; s < field; ++s) {
+          const float* slot = tris + (static_cast<int64_t>(meta) + s) * G * kTriStride;
+          for (int g = 0; g < G; ++g) {
+            const float* tv = slot + g * kTriStride;
+            float t, u, v;
+            if (moller(tv, r, bt, t, u, v)) {
+              bt = t;
+              btri = __float_as_int(__ldg(tv + 9));
+              bu = u;
+              bv = v;
+            }
+          }
+        }
+      } else if (field >= kInnerField) {
+        // Near child on top: the left child is nearer when the ray's sign
+        // on the split axis agrees with left_is_lower.
+        int code = field - kInnerField;
+        bool near_is_left = r.pos[code >> 1] == ((code & 1) != 0);
+        stack[sp++] = near_is_left ? meta : node + 1;
+        stack[sp++] = near_is_left ? node + 1 : meta;
+      }
+    }
+  }
+  t_out[i] = btri >= 0 ? bt : __int_as_float(0x7f800000);
+  tri_out[i] = btri;
+  u_out[i] = bu;
+  v_out[i] = bv;
+}
+
+__global__ void any_node_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                                const float* __restrict__ tmax, int tmax_stride,
+                                const float* __restrict__ nodes,
+                                const float* __restrict__ tris, int G, int n,
+                                bool* __restrict__ occ_out) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Ray r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1], d[3 * i + 2]);
+  float cap = tmax[i * tmax_stride];
+  bool occ = false;
+  if (!is_dead(r.ox, r.dx, r.dy, r.dz) && cap > kEps) {
+    int stack[kStackMax];
+    int sp = 0;
+    stack[sp++] = 0;
+    while (sp > 0 && !occ) {
+      int node = stack[--sp];
+      const float* row = nodes + static_cast<int64_t>(node) * kOneNodeStride;
+      if (!slab(row, 0, r, cap)) continue;
+      int enc = __float_as_int(__ldg(row + 6));
+      int field = enc & 31, meta = enc >> 5;
+      if (is_leaf(field)) {
+        for (int s = 0; s < field && !occ; ++s) {
+          const float* slot = tris + (static_cast<int64_t>(meta) + s) * G * kTriStride;
+          for (int g = 0; g < G; ++g) {
+            float t, u, v;
+            if (moller(slot + g * kTriStride, r, cap, t, u, v)) {
+              occ = true;
+              break;
+            }
+          }
+        }
+      } else if (field >= kInnerField) {
+        // The Pallas kernel's order: right child below, left child on top.
+        stack[sp++] = meta;
+        stack[sp++] = node + 1;
+      }
+    }
+  }
+  occ_out[i] = occ;
+}
+
 inline int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
 
 extern "C" {
 
+// K1-K3 over one table (the single-table and paged routes).
 int nb_closest_fat4(const float* o, const float* d, const float* tmax, int tmax_stride,
                     const float* nodes, const float* tris, int G, int n, float* t,
                     int32_t* tri, float* u, float* v, void* stream) {
   if (n > 0) {
     closest_fat4_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, d, tmax, tmax_stride, nodes, tris, G, n, t, tri, u, v);
+        o, d, tmax, tmax_stride, nodes, tris, G, n, t, tri, u, v, AllSlots{});
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -328,7 +461,7 @@ int nb_combo_fat4(const float* o, const float* b, const float* l, const float* t
                   void* stream) {
   if (n > 0) {
     combo_fat4_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, b, l, tmax_b, sb, tmax_l, sl, nodes, tris, G, n, t, tri, u, v, occ);
+        o, b, l, tmax_b, sb, tmax_l, sl, nodes, tris, G, n, t, tri, u, v, occ, AllSlots{});
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -338,6 +471,63 @@ int nb_any_fat4(const float* o, const float* d, const float* tmax, int tmax_stri
                 void* stream) {
   if (n > 0) {
     any_fat4_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        o, d, tmax, tmax_stride, nodes, tris, G, n, occ, AllSlots{});
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6b: the same walks, intersecting only leaves whose first slot lies in
+// [slot_lo, slot_hi); `tris` is that chunk's table (global slot slot_lo at
+// row 0).
+int nb_closest_fat4_slots(const float* o, const float* d, const float* tmax, int tmax_stride,
+                          const float* nodes, const float* tris, int G, int n, int slot_lo,
+                          int slot_hi, float* t, int32_t* tri, float* u, float* v,
+                          void* stream) {
+  if (n > 0) {
+    closest_fat4_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        o, d, tmax, tmax_stride, nodes, tris, G, n, t, tri, u, v, SlotRange{slot_lo, slot_hi});
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int nb_combo_fat4_slots(const float* o, const float* b, const float* l, const float* tmax_b,
+                        int sb, const float* tmax_l, int sl, const float* nodes,
+                        const float* tris, int G, int n, int slot_lo, int slot_hi, float* t,
+                        int32_t* tri, float* u, float* v, bool* occ, void* stream) {
+  if (n > 0) {
+    combo_fat4_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        o, b, l, tmax_b, sb, tmax_l, sl, nodes, tris, G, n, t, tri, u, v, occ,
+        SlotRange{slot_lo, slot_hi});
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int nb_any_fat4_slots(const float* o, const float* d, const float* tmax, int tmax_stride,
+                      const float* nodes, const float* tris, int G, int n, int slot_lo,
+                      int slot_hi, bool* occ, void* stream) {
+  if (n > 0) {
+    any_fat4_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        o, d, tmax, tmax_stride, nodes, tris, G, n, occ, SlotRange{slot_lo, slot_hi});
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8 over one-node rows.
+int nb_closest_node(const float* o, const float* d, const float* tmax, int tmax_stride,
+                    const float* nodes, const float* tris, int G, int n, float* t,
+                    int32_t* tri, float* u, float* v, void* stream) {
+  if (n > 0) {
+    closest_node_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        o, d, tmax, tmax_stride, nodes, tris, G, n, t, tri, u, v);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int nb_any_node(const float* o, const float* d, const float* tmax, int tmax_stride,
+                const float* nodes, const float* tris, int G, int n, bool* occ,
+                void* stream) {
+  if (n > 0) {
+    any_node_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         o, d, tmax, tmax_stride, nodes, tris, G, n, occ);
   }
   return static_cast<int>(cudaGetLastError());

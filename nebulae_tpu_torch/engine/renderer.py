@@ -4,6 +4,9 @@ Counterpart of `nebulae_tpu/engine/renderer.py` (`init_frame_state`,
 `render_frame`, `Renderer.__init__` and `render`).  PyTorch runs eagerly,
 so the frame is a plain function; the frame state is a dict of tensors
 plus the frame counter and the history-reset flag as Python values.
+`pack_scene_tables` routes a scene to its traversal tables branch for
+branch as the JAX Renderer does (one table, paged, tri-chunked,
+subtree-chunked or one-node).
 The frame's phases run under `record_function` ranges named
 "nebulae/<phase>" (gbuffer, pathtrace, svgf, tonemap), so a profiler trace
 can attribute device time to them.
@@ -22,7 +25,8 @@ from nebulae_tpu_torch.core import rng as nrng
 from nebulae_tpu_torch.core.math import luminance
 from nebulae_tpu_torch.core.scene import FlatScene, to_tensors
 from nebulae_tpu_torch.device import resolve_device
-from nebulae_tpu_torch.kernels.trace import empty_tables, pack_bvh_fat4, tables_to
+from nebulae_tpu_torch.kernels import chunks as kc
+from nebulae_tpu_torch.kernels.trace import empty_tables, pack_bvh_fat4, pack_bvh_nodes, tables_to
 from nebulae_tpu_torch.passes.direct import shade_direct
 from nebulae_tpu_torch.passes.gbuffer import camera_rays, make_camera_arrays, render_gbuffer
 from nebulae_tpu_torch.passes.pathtrace import path_trace
@@ -46,6 +50,50 @@ def check_supported(cfg: RenderConfig) -> None:
         raise NotImplementedError('tracer="bvh" is not ported (ROADMAP Queue 1, item 3)')
 
 
+def pack_scene_tables(bvh, tri_pos: np.ndarray, cfg: RenderConfig) -> tuple[str, dict]:
+    """(route, packed numpy tables) for a scene, by the JAX Renderer's rules
+    (`nebulae_tpu/engine/renderer.py:345-421`):
+
+      "single"  one fat4 table: up to SINGLE_TABLE_MAX_TRIS triangles, or
+                under "auto" while JAX's padded table bytes fit
+                SINGLE_TABLE_MAX_BYTES;
+      "paged"   one fat4 table walked by the K6a wrappers: "auto" past the
+                byte gate when the scene is over 3 chunks of
+                MAX_CHUNK_TRIS, or chunk_mode="paged" at any size;
+      "tri"     whole-tree nodes and triangle chunks (K6b), for "tri" above
+                SINGLE_TABLE_MAX_TRIS when pack_bvh_tri_chunks packs them;
+      "subtree" subtree chunk tables, for the other large-scene cases;
+      "node"    one-node tables (K8) when the root is a leaf.
+
+    bvh_wide=2 routes as JAX routes it (never paged or tri-chunked) but
+    packs fat4 tables, since the fat2 kernels are not ported.  The tables
+    carry "paged" (True on the paged route only)."""
+    t_count = int(tri_pos.shape[0])
+    g = cfg.bvh_tri_group
+    wide4 = cfg.bvh_wide == 4
+    mode = cfg.chunk_mode
+    if mode == "auto":
+        mode = "subtree" if -(-t_count // kc.MAX_CHUNK_TRIS) <= 3 else "paged"
+    cand = None
+    if t_count > kc.SINGLE_TABLE_MAX_TRIS and wide4 and cfg.chunk_mode == "auto":
+        cand = pack_bvh_fat4(bvh, tri_pos, g)
+        if cand is not None and kc.jax_table_bytes(cand) <= kc.SINGLE_TABLE_MAX_BYTES:
+            return "single", {**cand, "paged": False}
+    if mode == "paged" and wide4:
+        full = cand if cand is not None else pack_bvh_fat4(bvh, tri_pos, g)
+        if full is not None:
+            return "paged", {**full, "paged": True}
+    if t_count > kc.SINGLE_TABLE_MAX_TRIS:
+        tri = kc.pack_bvh_tri_chunks(bvh, tri_pos, g) if mode == "tri" and wide4 else None
+        if tri is not None:
+            return "tri", {**tri, "paged": False}
+        return "subtree", {"chunks": kc.pack_bvh_chunks(bvh, tri_pos, tri_group=g), "paged": False}
+    fat4 = pack_bvh_fat4(bvh, tri_pos, g)
+    if fat4 is not None:
+        return "single", {**fat4, "paged": False}
+    return "node", {**pack_bvh_nodes(bvh, tri_pos, g), "paged": False}
+
+
 def init_frame_state(cfg: RenderConfig, device) -> dict:
     """SVGF history, frame counter and history-reset flag."""
     check_supported(cfg)
@@ -58,13 +106,14 @@ def init_frame_state(cfg: RenderConfig, device) -> dict:
 
 def render_frame(scene: dict, tables: dict | None, sun: SunLight, cam: dict, state: dict,
                  cfg: RenderConfig, device=None):
-    """One frame.  `scene` (to_tensors of device_arrays), `tables` (fat4
-    tables or None), `sun` and `cam` live on `device` (CUDA unless "cpu" is
-    asked for).  Returns (outputs, new_state): outputs hold 'ldr' and,
-    unless cfg.lean_outputs, 'hdr', 'denoised' and the G-buffer.  Called
-    under grad with material tables or sun leaves that require it, the
-    outputs carry their gradients (hits and textures are detached, as in
-    JAX); `Renderer.render` calls it under no_grad."""
+    """One frame.  `scene` (to_tensors of device_arrays), `tables` (a
+    route's traversal tables, or None), `sun` and `cam` live on `device`
+    (CUDA unless "cpu" is asked for).  Returns (outputs, new_state):
+    outputs hold 'ldr' and, unless cfg.lean_outputs, 'hdr', 'denoised'
+    and the G-buffer.  Called under grad with material tables or sun
+    leaves that require it, the outputs carry their gradients (hits and
+    textures are detached, as in JAX); `Renderer.render` calls it under
+    no_grad."""
     dev = resolve_device(device)
     check_supported(cfg)
     w, h = cfg.width, cfg.height
@@ -150,7 +199,9 @@ def render_frame(scene: dict, tables: dict | None, sun: SunLight, cam: dict, sta
 
 class Renderer:
     """Owns the scene tensors, traversal tables, sun and frame state:
-    build with a FlatScene, call `.render(camera)` per frame."""
+    build with a FlatScene, call `.render(camera)` per frame.  `route`
+    names the tables' route (see pack_scene_tables; "empty" for a scene
+    without triangles, None without tables)."""
 
     def __init__(self, flat_scene: FlatScene, cfg: RenderConfig, sun: SunLight | None = None,
                  bvh=None, device=None):
@@ -162,18 +213,14 @@ class Renderer:
         needs_tables = cfg.tracer == "pallas" or (
             cfg.tracer == "auto" and t_count > cfg.bruteforce_max_tris
         )
-        self.tables = None
+        self.tables = self.route = None
         if needs_tables:
             if t_count == 0:
-                packed = empty_tables()
+                self.route, packed = "empty", empty_tables()
             else:
                 if bvh is None:
                     bvh = build_bvh_for(self.device, flat_scene.tri_pos, max_leaf=cfg.bvh_max_leaf)
-                packed = pack_bvh_fat4(bvh, flat_scene.tri_pos, tri_group=cfg.bvh_tri_group)
-                if packed is None:
-                    raise NotImplementedError(
-                        "a BVH whose root is a leaf needs the one-node kernels (ROADMAP Queue 2, K8)"
-                    )
+                self.route, packed = pack_scene_tables(bvh, flat_scene.tri_pos, cfg)
             self.tables = tables_to(packed, self.device)
         self.sun = (sun if sun is not None else SunLight.default(self.device)).to(self.device)
         self.state = init_frame_state(cfg, self.device)

@@ -1,21 +1,30 @@
-"""Fat4 traversal tables and kernels K1-K3, with their plain PyTorch versions.
+"""Traversal tables and kernels K1-K3, K6a, K6b and K8, with their plain
+PyTorch versions.
 
-Replaces `nebulae_tpu/kernels/pallas_trace.py` (pack_bvh_fat4, _grouped_tris
-and the fat4 closest / combo / any kernels).  The tables hold the same
-values as the JAX packer, in a row-major layout one GPU thread can load:
+Replaces `nebulae_tpu/kernels/pallas_trace.py` (pack_bvh_fat4,
+pack_bvh_for_pallas, _grouped_tris, the fat4 closest / combo / any kernels
+with their slot_range and paged builds, and the one-node closest / any
+kernels).  The tables hold the same values as the JAX packers, in a
+row-major layout one GPU thread can load:
 
   fat4nodes [n_nodes, 32] f32: slot k box at [6k, 6k+6) (lo.xyz, hi.xyz);
       [24 + k] the slot's enc as int32 bits: leaf -> first_slot*32 + count
       (1..15), inner -> fat4_id*32 + 16, empty -> 0; [28] the order meta
       om_self*36 + om_left*6 + om_right as int32 bits; [29:32] zero.
+  nodes [n_nodes, 8] f32 (one-node layout, K8): lo.xyz, hi.xyz, enc as
+      int32 bits (leaf -> first_slot*32 + count, inner -> right*32 + 16 +
+      axis*2 + left_is_lower; the left child is the next row), zero.
   tris [n_slots, G, 10] f32: v0, e1, e2 and the original triangle id as
       int32 bits; short leaves repeat their last triangle.
 
-Each `*_fat4` wrapper launches its CUDA kernel (csrc/trace.cu) for CUDA
-tensors and runs the plain version for CPU tensors; it raises on anything
-else.  The plain versions walk the same tree in the same per-ray order with
-the same float32 arithmetic (one rounding per multiply and add), so on one
-device kernel and plain version agree bit for bit in tri and occ.
+Each wrapper launches its CUDA kernel (csrc/trace.cu) for CUDA tensors,
+adds one to its own `launches` count, and runs the plain version for CPU
+tensors; it raises on anything else.  K6a (`*_paged`) launches K1-K3 over
+the one table in device memory and counts apart; K6b (`*_slots`) is K1-K3
+with a leaf slot gate.  The plain versions walk the same tree in the same
+per-ray order with the same float32 arithmetic (one rounding per multiply
+and add), so on one device kernel and plain version agree bit for bit in
+tri and occ.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from nebulae_tpu_torch.kernels.build import check, native
 
 TRI_STRIDE = 10
 NODE_STRIDE = 32
+ONE_NODE_STRIDE = 8
 META_SHIFT = 5
 MAX_LEAF_FIELD = 15
 INNER_FIELD = 16
@@ -83,7 +93,8 @@ def grouped_tris(bvh, tri_pos: np.ndarray, tri_group: int):
 
 def pack_bvh_fat4(bvh, tri_pos: np.ndarray, tri_group: int = 8) -> dict | None:
     """FlatBVH + world triangles -> fat4 tables (numpy), or None when the
-    root is a leaf (that case is kernel K8, not ported).
+    root is a leaf (that tree takes the one-node tables of pack_bvh_nodes
+    and kernel K8).
 
     Fat4 node i expands BVH2 inner node i into its grandchildren: slots 0, 1
     are the children of i's left child (or [left child, empty] when it is a
@@ -152,22 +163,72 @@ def pack_bvh_fat4(bvh, tri_pos: np.ndarray, tri_group: int = 8) -> dict | None:
     return {"fat4nodes": nodes, "tris": tris, "stack_depth": stack_depth}
 
 
+def pack_bvh_nodes(bvh, tri_pos: np.ndarray, tri_group: int = 8) -> dict:
+    """FlatBVH + world triangles -> one-node tables (numpy) for K8, the
+    counterpart of pack_bvh_for_pallas: the same rows and enc values,
+    row-major.  Also returns `stack_depth`, the deepest stack a walk can
+    need (tree levels + 1)."""
+    n = int(bvh.node_lo.shape[0])
+    tris, slot_first, slot_count = grouped_tris(bvh, tri_pos, tri_group)
+    node_lo = np.asarray(bvh.node_lo, np.float32)
+    node_hi = np.asarray(bvh.node_hi, np.float32)
+    node_right = np.asarray(bvh.node_right, np.int64)
+    is_leaf = np.asarray(bvh.node_count) > 0
+    first_or_right = np.where(is_leaf, slot_first, node_right)
+    # Split axis and side from the children's box centres, as JAX derives them.
+    left = np.minimum(np.arange(n) + 1, max(n - 1, 0))
+    right = np.clip(node_right, 0, max(n - 1, 0))
+    c_l = (node_lo[left] + node_hi[left]) * 0.5
+    c_r = (node_lo[right] + node_hi[right]) * 0.5
+    axis = np.argmax(np.abs(c_r - c_l), axis=-1)
+    lower = (c_l[np.arange(n), axis] <= c_r[np.arange(n), axis]).astype(np.int64)
+    field = np.where(is_leaf, slot_count, INNER_FIELD + axis * 2 + lower)
+    enc = (first_or_right * (1 << META_SHIFT) + field).astype(np.int32)
+    nodes = np.zeros((n, ONE_NODE_STRIDE), np.float32)
+    nodes[:, 0:3] = node_lo
+    nodes[:, 3:6] = node_hi
+    nodes[:, 6] = enc.view(np.float32)
+    level = np.ones(n, np.int64)
+    for i in range(n):  # children follow their parent in pre-order
+        if not is_leaf[i]:
+            level[i + 1] = level[node_right[i]] = level[i] + 1
+    stack_depth = int(level.max(initial=0)) + 1
+    if stack_depth > STACK_MAX:
+        raise ValueError(f"BVH needs a {stack_depth}-entry stack; the kernels hold {STACK_MAX}")
+    return {"nodes": nodes, "tris": tris, "stack_depth": stack_depth}
+
+
 def empty_tables() -> dict:
     """Tables of a scene without triangles: every trace misses."""
     return {
         "fat4nodes": np.zeros((0, NODE_STRIDE), np.float32),
         "tris": np.zeros((1, 1, TRI_STRIDE), np.float32),
         "stack_depth": 1,
+        "paged": False,
     }
 
 
 def tables_to(packed: dict, device) -> dict:
-    """Move packed numpy tables onto a device."""
-    return {
-        "fat4nodes": torch.as_tensor(packed["fat4nodes"]).to(device).contiguous(),
-        "tris": torch.as_tensor(packed["tris"]).to(device).contiguous(),
-        "stack_depth": int(packed["stack_depth"]),
-    }
+    """Move packed numpy tables (any route: one table, "chunks" of subtree
+    tables, or "tri_chunks" slot ranges over one triangle table) onto a
+    device.  A tri chunk becomes a dict of the whole-tree nodes and the
+    view tris[lo:hi] of the triangle table, with its slot range."""
+    out = {}
+    for k, v in packed.items():
+        if k in ("fat4nodes", "nodes", "tris"):
+            out[k] = torch.as_tensor(v).to(device).contiguous()
+        elif k == "chunks":
+            out[k] = [tables_to(c, device) for c in v]
+        elif k != "tri_chunks":
+            out[k] = v
+    if "tri_chunks" in packed:
+        tris = out.pop("tris")
+        out["tri_chunks"] = [
+            {"fat4nodes": out["fat4nodes"], "tris": tris[lo:hi], "stack_depth": out["stack_depth"],
+             "slot_lo": int(lo), "slot_hi": int(hi)}
+            for lo, hi in packed["tri_chunks"]
+        ]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -195,7 +256,11 @@ def _dead(o, d):
 
 def _slab4(rows, inv, oi, cap):
     """Slab test of the 4 slot boxes of node rows [M, 32] -> [M, 4] bool."""
-    box = rows[:, :24].reshape(-1, 4, 6)
+    return _slab(rows[:, :24].reshape(-1, 4, 6), inv, oi, cap)
+
+
+def _slab(box, inv, oi, cap):
+    """Slab test of boxes [M, K, 6] (lo.xyz, hi.xyz) -> [M, K] bool."""
     ix, iy, iz = inv[:, 0:1], inv[:, 1:2], inv[:, 2:3]
     oix, oiy, oiz = oi[:, 0:1], oi[:, 1:2], oi[:, 2:3]
     t0x = box[..., 0] * ix - oix
@@ -285,16 +350,23 @@ class _Walk:
             self.sp[sel] += 1
 
 
-def _leaf_slots(field_k, meta_k, hit_k):
-    """Yield (local index, slot id) per slot iteration s of leaves hit."""
+def _leaf_slots(field_k, meta_k, hit_k, slot_range=None):
+    """Yield (local index, table row) per slot iteration s of leaves hit.
+    With slot_range=(lo, hi) only leaves whose first slot lies in [lo, hi)
+    are taken, at row first - lo (the K6b gate)."""
     leaf = hit_k & (field_k > 0) & (field_k <= MAX_LEAF_FIELD)
+    first = meta_k
+    if slot_range is not None:
+        lo, hi = slot_range
+        leaf = leaf & (meta_k >= lo) & (meta_k < hi)
+        first = meta_k - lo
     loc = torch.nonzero(leaf)[:, 0]
     if loc.numel() == 0:
         return
     nsl = field_k[loc]
     for s in range(int(nsl.max())):
         sel = loc[nsl > s]
-        yield sel, meta_k[sel] + s
+        yield sel, first[sel] + s
 
 
 def _closest_step(tv, o, d, bt, btri, bu, bv, gate=None):
@@ -328,10 +400,12 @@ def _count(work, visits=0, box_tests=0, tri_tests=0):
         work["tri_tests"] = work.get("tri_tests", 0) + tri_tests
 
 
-def closest_hit_fat4_plain(o, d, tables: dict, t_max=float("inf"), work=None):
+def closest_hit_fat4_plain(o, d, tables: dict, t_max=float("inf"), work=None, slot_range=None):
     """Plain version of K1: dict(t, tri, u, v) per ray (t inf and tri -1 on a
     miss).  `work`, if a dict, receives the node visits, box tests and
-    triangle tests this run needed."""
+    triangle tests this run needed.  With slot_range=(lo, hi), the plain
+    version of K6b: only leaves whose first slot lies in [lo, hi) are
+    intersected, and tables["tris"] holds those slots from row 0."""
     n = o.shape[0]
     nodes, tris = tables["fat4nodes"], tables["tris"]
     bt = _as_cap(t_max, n, o)
@@ -350,7 +424,7 @@ def closest_hit_fat4_plain(o, d, tables: dict, t_max=float("inf"), work=None):
         _count(work, ids.numel(), 4 * ids.numel())
         field, meta, om_s, om_l, om_r = _decode(rows)
         for k in range(4):
-            for sel, slot in _leaf_slots(field[:, k], meta[:, k], box[:, k]):
+            for sel, slot in _leaf_slots(field[:, k], meta[:, k], box[:, k], slot_range):
                 r = ids[sel]
                 _count(work, tri_tests=sel.numel() * tris.shape[1])
                 bt[r], btri[r], bu[r], bv[r] = _closest_step(
@@ -364,8 +438,8 @@ def closest_hit_fat4_plain(o, d, tables: dict, t_max=float("inf"), work=None):
     return {"t": _miss_t(btri, bt), "tri": btri, "u": bu, "v": bv}
 
 
-def any_hit_fat4_plain(o, d, tables: dict, t_max=float("inf"), work=None):
-    """Plain version of K3: occluded [N] bool."""
+def any_hit_fat4_plain(o, d, tables: dict, t_max=float("inf"), work=None, slot_range=None):
+    """Plain version of K3 (of K6b with slot_range): occluded [N] bool."""
     n = o.shape[0]
     nodes, tris = tables["fat4nodes"], tables["tris"]
     cap = _as_cap(t_max, n, o)
@@ -382,7 +456,7 @@ def any_hit_fat4_plain(o, d, tables: dict, t_max=float("inf"), work=None):
         _count(work, ids.numel(), 4 * ids.numel())
         field, meta, _, _, _ = _decode(rows)
         for k in range(4):
-            for sel, slot in _leaf_slots(field[:, k], meta[:, k], box[:, k]):
+            for sel, slot in _leaf_slots(field[:, k], meta[:, k], box[:, k], slot_range):
                 r = ids[sel]
                 _count(work, tri_tests=sel.numel() * tris.shape[1])
                 valid, t, _, _ = _moller(tris[slot], o[r], d[r])
@@ -395,8 +469,9 @@ def any_hit_fat4_plain(o, d, tables: dict, t_max=float("inf"), work=None):
 
 
 def shadow_closest_fat4_plain(o, b, l, tables: dict, t_max_b=float("inf"), t_max_l=float("inf"),
-                              work=None):
-    """Plain version of K2: (hit dict along b, occluded [N] along l)."""
+                              work=None, slot_range=None):
+    """Plain version of K2 (of K6b with slot_range): (hit dict along b,
+    occluded [N] along l)."""
     n = o.shape[0]
     nodes, tris = tables["fat4nodes"], tables["tris"]
     bt = _as_cap(t_max_b, n, o)
@@ -421,7 +496,8 @@ def shadow_closest_fat4_plain(o, b, l, tables: dict, t_max_b=float("inf"), t_max
         _count(work, ids.numel(), 4 * (int(gate_b.sum()) + int(gate_l.sum())))
         field, meta, om_s, om_l, om_r = _decode(rows)
         for k in range(4):
-            for sel, slot in _leaf_slots(field[:, k], meta[:, k], box_b[:, k] | box_l[:, k]):
+            tested = box_b[:, k] | box_l[:, k]
+            for sel, slot in _leaf_slots(field[:, k], meta[:, k], tested, slot_range):
                 r = ids[sel]
                 gates = int(box_b[sel, k].sum()) + int(box_l[sel, k].sum())
                 _count(work, tri_tests=gates * tris.shape[1])
@@ -440,6 +516,76 @@ def shadow_closest_fat4_plain(o, b, l, tables: dict, t_max_b=float("inf"), t_max
     return {"t": _miss_t(btri, bt), "tri": btri, "u": bu, "v": bv}, occ
 
 
+def _decode_node(rows):
+    enc = rows[:, 6].contiguous().view(torch.int32).long()
+    return enc & 31, enc >> META_SHIFT
+
+
+def closest_hit_node_plain(o, d, tables: dict, t_max=float("inf"), work=None):
+    """Plain version of K8 closest over one-node tables: dict(t, tri, u, v).
+    The near child (by the ray's own sign on the split axis) is walked
+    first."""
+    n = o.shape[0]
+    nodes, tris = tables["nodes"], tables["tris"]
+    bt = _as_cap(t_max, n, o)
+    btri = torch.full((n,), -1, dtype=torch.int32, device=o.device)
+    bu = torch.zeros(n, dtype=torch.float32, device=o.device)
+    bv = torch.zeros_like(bu)
+    live = ~_dead(o, d) & (bt > EPS) & (nodes.shape[0] > 0)
+    walk = _Walk(n, tables["stack_depth"], live, o.device)
+    rays = _Rays(o, d)
+    while True:
+        ids = walk.active()
+        if ids.numel() == 0:
+            break
+        node = walk.pop(ids)
+        rows = nodes[node]
+        box = _slab(rows[:, None, :6], rays.inv[ids], rays.oi[ids], bt[ids])[:, 0]
+        _count(work, ids.numel(), ids.numel())
+        field, meta = _decode_node(rows)
+        for sel, slot in _leaf_slots(field, meta, box):
+            r = ids[sel]
+            _count(work, tri_tests=sel.numel() * tris.shape[1])
+            bt[r], btri[r], bu[r], bv[r] = _closest_step(tris[slot], o[r], d[r], bt[r], btri[r], bu[r], bv[r])
+        inner = box & (field >= INNER_FIELD)
+        code = torch.clamp(field - INNER_FIELD, min=0)
+        near_left = torch.gather(rays.pos[ids], 1, (code >> 1)[:, None])[:, 0] == ((code & 1) == 1)
+        left = node + 1
+        walk.push(ids, torch.where(near_left, meta, left), inner)
+        walk.push(ids, torch.where(near_left, left, meta), inner)
+    return {"t": _miss_t(btri, bt), "tri": btri, "u": bu, "v": bv}
+
+
+def any_hit_node_plain(o, d, tables: dict, t_max=float("inf"), work=None):
+    """Plain version of K8 any hit over one-node tables: occluded [N]."""
+    n = o.shape[0]
+    nodes, tris = tables["nodes"], tables["tris"]
+    cap = _as_cap(t_max, n, o)
+    occ = torch.zeros(n, dtype=torch.bool, device=o.device)
+    live = ~_dead(o, d) & (cap > EPS) & (nodes.shape[0] > 0)
+    walk = _Walk(n, tables["stack_depth"], live, o.device)
+    rays = _Rays(o, d)
+    while True:
+        ids = walk.active()
+        if ids.numel() == 0:
+            break
+        node = walk.pop(ids)
+        rows = nodes[node]
+        box = _slab(rows[:, None, :6], rays.inv[ids], rays.oi[ids], cap[ids])[:, 0]
+        _count(work, ids.numel(), ids.numel())
+        field, meta = _decode_node(rows)
+        for sel, slot in _leaf_slots(field, meta, box):
+            r = ids[sel]
+            _count(work, tri_tests=sel.numel() * tris.shape[1])
+            valid, t, _, _ = _moller(tris[slot], o[r], d[r])
+            occ[r] |= (valid & (t < cap[r][:, None])).any(dim=1)
+        inner = box & (field >= INNER_FIELD) & ~occ[ids]
+        walk.push(ids, meta, inner)
+        walk.push(ids, node + 1, inner)
+        walk.sp[occ] = 0
+    return occ
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -454,13 +600,14 @@ def _check_rays(*arrs):
     return n, dev
 
 
-def _check_tables(tables, dev):
-    for k in ("fat4nodes", "tris"):
+def _check_tables(tables, dev, nodes_key="fat4nodes"):
+    for k in (nodes_key, "tris"):
         t = tables[k]
         if t.dtype != torch.float32 or t.device != dev or not t.is_contiguous():
             raise ValueError(f"table {k} must be a contiguous float32 tensor on {dev}")
-    if tables["fat4nodes"].dim() != 2 or tables["fat4nodes"].shape[1] != NODE_STRIDE:
-        raise ValueError("fat4nodes must be [n_nodes, 32]")
+    stride = NODE_STRIDE if nodes_key == "fat4nodes" else ONE_NODE_STRIDE
+    if tables[nodes_key].dim() != 2 or tables[nodes_key].shape[1] != stride:
+        raise ValueError(f"{nodes_key} must be [n_nodes, {stride}]")
     if tables["tris"].dim() != 3 or tables["tris"].shape[2] != TRI_STRIDE:
         raise ValueError("tris must be [n_slots, G, 10]")
     if tables["stack_depth"] > STACK_MAX:
@@ -494,12 +641,6 @@ def _use_kernel(dev) -> bool:
     return True
 
 
-def _nothing_to_trace(n, tables) -> bool:
-    """No rays, or a scene without triangles: every record is a miss and
-    no kernel is launched."""
-    return n == 0 or tables["fat4nodes"].shape[0] == 0
-
-
 def _misses(n, dev):
     return {
         "t": torch.full((n,), float("inf"), dtype=torch.float32, device=dev),
@@ -518,69 +659,169 @@ def _hit_out(n, dev):
     }
 
 
-def closest_hit_fat4(o, d, tables: dict, t_max=float("inf")):
-    """K1: closest hit over the fat4 tables -> dict(t, tri, u, v)."""
+def _closest(entry, counter, plain, o, d, tables, t_max, nodes_key="fat4nodes", gate=()):
+    """Launch a closest-hit kernel (C entry `entry`, slot gate args after
+    the ray count) and add one to counter.launches; CPU tensors run
+    `plain()`.  No rays, or a scene without triangles, give miss records
+    and launch nothing."""
     n, dev = _check_rays(o, d)
-    _check_tables(tables, dev)
+    _check_tables(tables, dev, nodes_key)
     if not _use_kernel(dev):
-        return closest_hit_fat4_plain(o, d, tables, t_max)
-    if _nothing_to_trace(n, tables):
+        return plain()
+    if n == 0 or tables[nodes_key].shape[0] == 0:
         return _misses(n, dev)
     o, d = o.contiguous(), d.contiguous()
     cap, stride = _cap_arg(t_max, n, dev)
     out = _hit_out(n, dev)
-    check(native().lib.nb_closest_fat4(
-        _ptr(o), _ptr(d), _ptr(cap), stride, _ptr(tables["fat4nodes"]), _ptr(tables["tris"]),
-        int(tables["tris"].shape[1]), n, _ptr(out["t"]), _ptr(out["tri"]), _ptr(out["u"]),
+    check(getattr(native().lib, entry)(
+        _ptr(o), _ptr(d), _ptr(cap), stride, _ptr(tables[nodes_key]), _ptr(tables["tris"]),
+        int(tables["tris"].shape[1]), n, *gate, _ptr(out["t"]), _ptr(out["tri"]), _ptr(out["u"]),
         _ptr(out["v"]), _stream(),
-    ), "closest_fat4")
-    closest_hit_fat4.launches += 1
+    ), entry)
+    counter.launches += 1
     return out
 
 
-def any_hit_fat4(o, d, tables: dict, t_max=float("inf")):
-    """K3: occlusion within t_max -> occluded [N] bool."""
+def _any(entry, counter, plain, o, d, tables, t_max, nodes_key="fat4nodes", gate=()):
+    """As _closest, for an any-hit kernel -> occluded [N] bool."""
     n, dev = _check_rays(o, d)
-    _check_tables(tables, dev)
+    _check_tables(tables, dev, nodes_key)
     if not _use_kernel(dev):
-        return any_hit_fat4_plain(o, d, tables, t_max)
-    if _nothing_to_trace(n, tables):
+        return plain()
+    if n == 0 or tables[nodes_key].shape[0] == 0:
         return torch.zeros(n, dtype=torch.bool, device=dev)
     o, d = o.contiguous(), d.contiguous()
     cap, stride = _cap_arg(t_max, n, dev)
     occ = torch.empty(n, dtype=torch.bool, device=dev)
-    check(native().lib.nb_any_fat4(
-        _ptr(o), _ptr(d), _ptr(cap), stride, _ptr(tables["fat4nodes"]), _ptr(tables["tris"]),
-        int(tables["tris"].shape[1]), n, _ptr(occ), _stream(),
-    ), "any_fat4")
-    any_hit_fat4.launches += 1
+    check(getattr(native().lib, entry)(
+        _ptr(o), _ptr(d), _ptr(cap), stride, _ptr(tables[nodes_key]), _ptr(tables["tris"]),
+        int(tables["tris"].shape[1]), n, *gate, _ptr(occ), _stream(),
+    ), entry)
+    counter.launches += 1
     return occ
 
 
-def shadow_closest_fat4(o, b, l, tables: dict, t_max_b=float("inf"), t_max_l=float("inf")):
-    """K2: one walk for the bounce ray b (closest hit under t_max_b) and the
-    shadow ray l (occlusion under t_max_l) from the same origins.
-    Returns (hit dict, occluded [N])."""
+def _combo(entry, counter, plain, o, b, l, tables, t_max_b, t_max_l, gate=()):
+    """As _closest, for the fused shadow+bounce kernel -> (hit, occluded)."""
     n, dev = _check_rays(o, b, l)
     _check_tables(tables, dev)
     if not _use_kernel(dev):
-        return shadow_closest_fat4_plain(o, b, l, tables, t_max_b, t_max_l)
-    if _nothing_to_trace(n, tables):
+        return plain()
+    if n == 0 or tables["fat4nodes"].shape[0] == 0:
         return _misses(n, dev), torch.zeros(n, dtype=torch.bool, device=dev)
     o, b, l = o.contiguous(), b.contiguous(), l.contiguous()
     cap_b, sb = _cap_arg(t_max_b, n, dev)
     cap_l, sl = _cap_arg(t_max_l, n, dev)
     hit = _hit_out(n, dev)
     occ = torch.empty(n, dtype=torch.bool, device=dev)
-    check(native().lib.nb_combo_fat4(
+    check(getattr(native().lib, entry)(
         _ptr(o), _ptr(b), _ptr(l), _ptr(cap_b), sb, _ptr(cap_l), sl, _ptr(tables["fat4nodes"]),
-        _ptr(tables["tris"]), int(tables["tris"].shape[1]), n, _ptr(hit["t"]), _ptr(hit["tri"]),
-        _ptr(hit["u"]), _ptr(hit["v"]), _ptr(occ), _stream(),
-    ), "combo_fat4")
-    shadow_closest_fat4.launches += 1
+        _ptr(tables["tris"]), int(tables["tris"].shape[1]), n, *gate, _ptr(hit["t"]),
+        _ptr(hit["tri"]), _ptr(hit["u"]), _ptr(hit["v"]), _ptr(occ), _stream(),
+    ), entry)
+    counter.launches += 1
     return hit, occ
 
 
-closest_hit_fat4.launches = 0
-any_hit_fat4.launches = 0
-shadow_closest_fat4.launches = 0
+def closest_hit_fat4(o, d, tables: dict, t_max=float("inf")):
+    """K1: closest hit over the fat4 tables -> dict(t, tri, u, v)."""
+    return _closest("nb_closest_fat4", closest_hit_fat4,
+                    lambda: closest_hit_fat4_plain(o, d, tables, t_max), o, d, tables, t_max)
+
+
+def any_hit_fat4(o, d, tables: dict, t_max=float("inf")):
+    """K3: occlusion within t_max -> occluded [N] bool."""
+    return _any("nb_any_fat4", any_hit_fat4,
+                lambda: any_hit_fat4_plain(o, d, tables, t_max), o, d, tables, t_max)
+
+
+def shadow_closest_fat4(o, b, l, tables: dict, t_max_b=float("inf"), t_max_l=float("inf")):
+    """K2: one walk for the bounce ray b (closest hit under t_max_b) and the
+    shadow ray l (occlusion under t_max_l) from the same origins.
+    Returns (hit dict, occluded [N])."""
+    return _combo("nb_combo_fat4", shadow_closest_fat4,
+                  lambda: shadow_closest_fat4_plain(o, b, l, tables, t_max_b, t_max_l),
+                  o, b, l, tables, t_max_b, t_max_l)
+
+
+# K6a: the paged route (the `paged=True` builds of K1-K3).  On the GPU the
+# triangle table stays in device memory behind the hardware caches, so
+# these launch K1-K3 themselves; each counts its launches apart.
+
+
+def closest_hit_fat4_paged(o, d, tables: dict, t_max=float("inf")):
+    """K6a closest: K1 over the paged route's table."""
+    return _closest("nb_closest_fat4", closest_hit_fat4_paged,
+                    lambda: closest_hit_fat4_plain(o, d, tables, t_max), o, d, tables, t_max)
+
+
+def any_hit_fat4_paged(o, d, tables: dict, t_max=float("inf")):
+    """K6a any hit: K3 over the paged route's table."""
+    return _any("nb_any_fat4", any_hit_fat4_paged,
+                lambda: any_hit_fat4_plain(o, d, tables, t_max), o, d, tables, t_max)
+
+
+def shadow_closest_fat4_paged(o, b, l, tables: dict, t_max_b=float("inf"), t_max_l=float("inf")):
+    """K6a fused walk: K2 over the paged route's table."""
+    return _combo("nb_combo_fat4", shadow_closest_fat4_paged,
+                  lambda: shadow_closest_fat4_plain(o, b, l, tables, t_max_b, t_max_l),
+                  o, b, l, tables, t_max_b, t_max_l)
+
+
+# K6b: K1-K3 with the leaf slot gate, over one tri chunk of tables_to (the
+# whole-tree fat4nodes, the chunk's tris view and its slot_lo / slot_hi).
+
+
+def _slot_range(chunk):
+    return int(chunk["slot_lo"]), int(chunk["slot_hi"])
+
+
+def closest_hit_fat4_slots(o, d, chunk: dict, t_max=float("inf")):
+    """K6b closest: K1 intersecting only the chunk's leaves."""
+    sr = _slot_range(chunk)
+    return _closest("nb_closest_fat4_slots", closest_hit_fat4_slots,
+                    lambda: closest_hit_fat4_plain(o, d, chunk, t_max, slot_range=sr),
+                    o, d, chunk, t_max, gate=sr)
+
+
+def any_hit_fat4_slots(o, d, chunk: dict, t_max=float("inf")):
+    """K6b any hit: K3 intersecting only the chunk's leaves."""
+    sr = _slot_range(chunk)
+    return _any("nb_any_fat4_slots", any_hit_fat4_slots,
+                lambda: any_hit_fat4_plain(o, d, chunk, t_max, slot_range=sr),
+                o, d, chunk, t_max, gate=sr)
+
+
+def shadow_closest_fat4_slots(o, b, l, chunk: dict, t_max_b=float("inf"), t_max_l=float("inf")):
+    """K6b fused walk: K2 intersecting only the chunk's leaves."""
+    sr = _slot_range(chunk)
+    return _combo("nb_combo_fat4_slots", shadow_closest_fat4_slots,
+                  lambda: shadow_closest_fat4_plain(o, b, l, chunk, t_max_b, t_max_l, slot_range=sr),
+                  o, b, l, chunk, t_max_b, t_max_l, gate=sr)
+
+
+# K8: one node per visit over pack_bvh_nodes' tables.
+
+
+def closest_hit_node(o, d, tables: dict, t_max=float("inf")):
+    """K8 closest hit over one-node tables -> dict(t, tri, u, v)."""
+    return _closest("nb_closest_node", closest_hit_node,
+                    lambda: closest_hit_node_plain(o, d, tables, t_max), o, d, tables, t_max,
+                    nodes_key="nodes")
+
+
+def any_hit_node(o, d, tables: dict, t_max=float("inf")):
+    """K8 any hit over one-node tables -> occluded [N] bool."""
+    return _any("nb_any_node", any_hit_node,
+                lambda: any_hit_node_plain(o, d, tables, t_max), o, d, tables, t_max,
+                nodes_key="nodes")
+
+
+WRAPPERS = (
+    closest_hit_fat4, shadow_closest_fat4, any_hit_fat4,
+    closest_hit_fat4_paged, shadow_closest_fat4_paged, any_hit_fat4_paged,
+    closest_hit_fat4_slots, shadow_closest_fat4_slots, any_hit_fat4_slots,
+    closest_hit_node, any_hit_node,
+)
+for _fn in WRAPPERS:
+    _fn.launches = 0

@@ -1,9 +1,13 @@
-"""Tracer factory: brute force for small scenes, fat4 kernels K1-K3 above.
+"""Tracer factory: brute force for small scenes, the traversal kernels above.
 
 Counterpart of `nebulae_tpu/tracer/trace.py`.  `make_tracer` keeps the
 `(closest, any)` contract: `closest(o, d, t_max)` -> dict(t, tri, u, v),
 `any(o, d, t_max)` -> occluded [N], and `closest.combo(o, b, l, t_max_b,
-t_max_l)` -> (hit, occluded) for the fused shadow+bounce walk.
+t_max_l)` -> (hit, occluded) for the fused shadow+bounce walk.  The tables'
+route picks the kernels: K1-K3 over one table, K6a on the paged route,
+chained K6b walks over triangle chunks, chained K1-K3 / K8 walks over
+subtree chunks, or K8 over one-node tables (whose combo is K8 closest then
+K8 any).
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from nebulae_tpu_torch.device import resolve_device
+from nebulae_tpu_torch.kernels import chunks as kc
 from nebulae_tpu_torch.kernels import trace as kt
 from nebulae_tpu_torch.tracer.intersect import ray_triangle
 
@@ -82,8 +87,9 @@ def _with_combo(closest, combo):
 
 def make_tracer(scene: dict, tables: dict | None, cfg, device=None):
     """(closest_fn, any_fn) for the scene: brute force at or below
-    cfg.bruteforce_max_tris (or without tables), the fat4 kernels above.
-    The scene tensors must live on `device` (CUDA unless "cpu" is asked for)."""
+    cfg.bruteforce_max_tris (or without tables), the kernels of the tables'
+    route above.  The scene tensors must live on `device` (CUDA unless
+    "cpu" is asked for)."""
     dev = resolve_device(device)
     if scene["tri_pos"].device.type != dev.type:
         raise ValueError(f"scene tensors are on {scene['tri_pos'].device}, expected {dev}")
@@ -112,15 +118,29 @@ def make_tracer(scene: dict, tables: dict | None, cfg, device=None):
     if mode != "pallas":
         raise ValueError(f"unknown tracer mode: {mode}")
     if tables is None:
-        raise ValueError('tracer="pallas" needs fat4 tables')
+        raise ValueError('tracer="pallas" needs traversal tables')
+    if "tri_chunks" in tables:
+        closest, any_hit, combo = kc.closest_tri_chunks, kc.any_tri_chunks, kc.shadow_closest_tri_chunks
+    elif "chunks" in tables:
+        closest, any_hit, combo = kc.closest_chunks, kc.any_chunks, kc.shadow_closest_chunks
+        tables = tables["chunks"]
+    elif "nodes" in tables:
+        closest, any_hit = kt.closest_hit_node, kt.any_hit_node
+
+        def combo(o, b, l, tabs, t_max_b, t_max_l):
+            return kt.closest_hit_node(o, b, tabs, t_max_b), kt.any_hit_node(o, l, tabs, t_max_l)
+    elif tables.get("paged", False):
+        closest, any_hit, combo = kt.closest_hit_fat4_paged, kt.any_hit_fat4_paged, kt.shadow_closest_fat4_paged
+    else:
+        closest, any_hit, combo = kt.closest_hit_fat4, kt.any_hit_fat4, kt.shadow_closest_fat4
 
     def closest_k(o, d, t_max=float("inf")):
-        return kt.closest_hit_fat4(o, d, tables, t_max)
+        return closest(o, d, tables, t_max)
 
     def any_k(o, d, t_max=float("inf")):
-        return kt.any_hit_fat4(o, d, tables, t_max)
+        return any_hit(o, d, tables, t_max)
 
     def combo_k(o, b, l, t_max_b, t_max_l):
-        return kt.shadow_closest_fat4(o, b, l, tables, t_max_b, t_max_l)
+        return combo(o, b, l, tables, t_max_b, t_max_l)
 
     return _with_combo(closest_k, combo_k), any_k

@@ -10,6 +10,12 @@ frame take the full-texture-shading path at every bounce.
   textured_scene(seed)  ~5k triangles, 64x64 maps: the CPU parity scene.
   bench_scene(seed)     ~139k triangles, 512x512 maps: the size of
                         `helmet_field(3, 3)` for the GPU frame.
+  large_scene(seed)     ~247k triangles, the size of `helmet_field(4, 4)`
+                        (Sponza-class): past the 160k single-table gate.
+  huge_scene(seed)      ~2.05M triangles: JAX's padded tables pass the
+                        80 MB byte gate, so "auto" routes it to paging.
+  box_scene()           a closed box of 12 untextured triangles: a BVH
+                        whose root is a leaf (the one-node tables, K8).
 """
 
 from __future__ import annotations
@@ -234,6 +240,49 @@ def bench_scene(seed: int = 0) -> FlatScene:
     """~139k triangles (nine 15.4k-triangle tori + ground), 512x512 maps:
     the size of the JAX bench's helmet_field(3, 3)."""
     return torus_field(seed, nx=3, nz=3, nu=110, nv=70, n_materials=3, map_size=512)
+
+
+def large_scene(seed: int = 0) -> FlatScene:
+    """~247k triangles (sixteen 15.4k-triangle tori + ground), 512x512 maps."""
+    return torus_field(seed, nx=4, nz=4, nu=110, nv=70, n_materials=3, map_size=512)
+
+
+def huge_scene(seed: int = 0) -> FlatScene:
+    """~2.05M triangles (sixty-four 32k-triangle tori + ground), 512x512 maps."""
+    return torus_field(seed, nx=8, nz=8, nu=160, nv=100, n_materials=3, map_size=512)
+
+
+def box_scene() -> FlatScene:
+    """A closed unit box of 12 triangles with outward normals, one
+    untextured material per face (at most bvh_max_leaf triangles, so the
+    BVH is a single leaf)."""
+    fs = FlatScene(
+        tri_pos=np.zeros((0, 3, 3), np.float32), tri_nrm=np.zeros((0, 3, 3), np.float32),
+        tri_uv=np.zeros((0, 3, 2), np.float32), tri_tan=np.zeros((0, 3, 4), np.float32),
+        tri_mat=np.zeros(0, np.int32), tri_face_nrm=np.zeros((0, 3), np.float32),
+        mat_base_color=np.zeros((0, 4), np.float32), mat_metallic=np.zeros(0, np.float32),
+        mat_roughness=np.zeros(0, np.float32), mat_emissive=np.zeros((0, 3), np.float32),
+        mat_tex_ids=np.zeros((0, 4), np.int32), mat_flags=np.zeros(0, np.int32),
+        mat_avg_albedo=np.zeros((0, 3), np.float32), mat_avg_rough=np.zeros(0, np.float32),
+        mat_avg_metal=np.zeros(0, np.float32), mat_avg_emissive=np.zeros((0, 3), np.float32),
+        textures=np.zeros((0, 1, 1, 4), np.uint8), tex_hw=np.zeros((0, 2), np.int32),
+        mat_tex=np.zeros((0, 1, 1, 12), np.uint8), mat_tex_hw=np.zeros((0, 2), np.int32),
+        mat_atlas_id=np.zeros(0, np.int32),
+        aabb_min=np.full(3, np.inf, np.float32), aabb_max=np.full(3, -np.inf, np.float32),
+    )
+    for axis in range(3):
+        u, v = (axis + 1) % 3, (axis + 2) % 3
+        for side in (0.0, 1.0):
+            c = np.zeros((4, 3), np.float32)
+            c[:, axis] = side
+            c[:, u] = [0, 1, 1, 0]
+            c[:, v] = [0, 0, 1, 1]
+            normal = np.zeros(3, np.float32)
+            normal[axis] = 1.0 if side else -1.0
+            quad = np.stack([c[[0, 1, 2]], c[[0, 2, 3]]])
+            color = [0.25 + 0.5 * side, 0.3 + 0.2 * axis, 0.8 - 0.5 * side]
+            _append_flat_tris(fs, quad, normal, color)
+    return fs
 
 
 def bench_camera(fs: FlatScene, fov_y_deg: float = 60.0) -> Camera:
