@@ -31,7 +31,19 @@ Phases (any failure raises and exits non-zero):
               train steps.  A 12-triangle box with tracer="pallas" (the
               BVH root is a leaf): a 1080p frame through K8, held against
               the brute-force frame
-  8. summary  one {"kernels": [...]} line, then the device line last
+  8. fat2     bvh_wide=2 and dynamic scenes.  The bench scene's fat2 table:
+              K7 (fat2 closest, fused and any) against its plain versions
+              and against K1-K3 at the phase-4 shapes, 1 warm-up and 3
+              timed 1080p frames held against the fat4 frame, one profiled
+              frame, and 1 warm-up and 3 timed train steps.  The 247k scene
+              with bvh_wide=2 (two fat2 subtree chunks): the chained K7
+              against its plain versions and 1 + 3 frames held against the
+              247k fat4 frame.  update_instances (a third of the tori turn
+              and slide) on the bench scene's fat4, fat2 and paged tables
+              and on the 247k subtree route (switched to paged): its time
+              and one profiled call, 1 + 3 frames held against a rebuild
+              on the moved triangles, and a profile of each
+  9. summary  one {"kernels": [...]} line, then the device line last
 Each phase logs its seconds.  Imports nothing of JAX or of the JAX package.
 """
 
@@ -210,8 +222,11 @@ def jax_layout_bytes(tables) -> int:
     if "tri_chunks" in tables:
         return rows(tables["fat4nodes"].shape[0]) * 128 + sum(
             rows(c["tris"].shape[0]) * c["tris"].shape[1] * 40 for c in tables["tri_chunks"])
+    tri_bytes = rows(tables["tris"].shape[0]) * tables["tris"].shape[1] * 40
     if "nodes" in tables:
-        return rows(tables["nodes"].shape[0]) * 32 + rows(tables["tris"].shape[0]) * tables["tris"].shape[1] * 40
+        return rows(tables["nodes"].shape[0]) * 32 + tri_bytes
+    if "fatnodes" in tables:
+        return rows(tables["fatnodes"].shape[0]) * 64 + tri_bytes
     return kc.jax_table_bytes(tables)
 
 
@@ -371,7 +386,11 @@ def _grad_report(opt) -> dict:
     return dict(zip(names, opt.grads))
 
 
-def train_phase(renderer, cam, cfg, wrappers) -> dict:
+FAT4_KERNELS = ("closest_fat4_kernel", "combo_fat4_kernel", "any_fat4_kernel", "atrous_fwd_kernel")
+FAT2_KERNELS = ("closest_fat_kernel", "combo_fat_kernel", "any_fat_kernel", "atrous_fwd_kernel")
+
+
+def train_phase(renderer, cam, cfg, wrappers, kernel_names=FAT4_KERNELS) -> dict:
     """bench.py:107-123 on the port: params held fixed across the timed
     steps, the frame state threaded from step to step.  Returns the launch
     counts of the 4 steps (1 warm-up, 3 timed)."""
@@ -420,9 +439,8 @@ def train_phase(renderer, cam, cfg, wrappers) -> dict:
         f"peak device memory {peak:.2f} GiB, launches per step {per_step}")
     log("train: gradient norms " + json.dumps(
         {k: float(torch.linalg.vector_norm(g)) for k, g in grads.items()}))
-    profile_frame(lambda: step(params, opt_state, cam, state, target),
-                  ("closest_fat4_kernel", "combo_fat4_kernel", "any_fat4_kernel", "atrous_fwd_kernel",
-                   "atrous_bwd_kernel"), step_s * 1e3, phases=TRAIN_PHASES, what="train step")
+    profile_frame(lambda: step(params, opt_state, cam, state, target), kernel_names + ("atrous_bwd_kernel",),
+                  step_s * 1e3, phases=TRAIN_PHASES, what="train step")
     return launches
 
 
@@ -469,11 +487,14 @@ LARGE_ROUTES = {"auto": "single", "subtree": "subtree", "tri": "tri", "paged": "
 
 
 def new_wrappers() -> dict:
-    """The kernels line's entries added by the large-scene phase, by the
-    wrapper that counts each one's launches."""
+    """The kernels line's entries added by the large-scene and fat2 phases,
+    by the wrapper that counts each one's launches."""
     from nebulae_tpu_torch.kernels import trace as kt
 
     return {
+        "closest_fat": kt.closest_hit_fat,
+        "shadow_closest_fat": kt.shadow_closest_fat,
+        "any_fat": kt.any_hit_fat,
         "closest_fat4_slots": kt.closest_hit_fat4_slots,
         "shadow_closest_fat4_slots": kt.shadow_closest_fat4_slots,
         "any_fat4_slots": kt.any_hit_fat4_slots,
@@ -521,6 +542,20 @@ def _frames(renderer, cam_obj, wrappers, n_timed=3):
     return out, sum(times) / len(times), times, launches
 
 
+def hold_frame(what, out, ref, ref_name):
+    """A frame against a reference frame: hit mask equal and >= 99% of
+    pixels within rtol 1e-3 / atol 1e-4 (an exact t tie may keep another
+    triangle).  Logs the shares."""
+    import torch
+
+    assert torch.equal(out["hit"], ref["hit"]), f"{what}: hit mask differs from {ref_name}"
+    close = torch.isclose(out["ldr"], ref["ldr"], rtol=1e-3, atol=1e-4).all(dim=-1).float().mean()
+    same = (out["ldr"] == ref["ldr"]).all(dim=-1).float().mean()
+    assert float(close) >= 0.99, f"{what}: only {float(close):.4f} of pixels agree with {ref_name}"
+    log(f"{what}: {float(close):.6f} of pixels within rtol 1e-3 / atol 1e-4 of {ref_name}, "
+        f"{float(same):.6f} bit-identical")
+
+
 def _slot_fns(c):
     """K6b's kernels and plain versions on tri chunk c, as hold_chain takes them."""
     from nebulae_tpu_torch.kernels import trace as kt
@@ -535,10 +570,17 @@ def _slot_fns(c):
 
 
 def _chunk_fns(c):
-    """K1-K3 on a fat4 subtree chunk, K8 on a single-leaf one (its fused
-    walk is K8 closest then K8 any)."""
+    """K1-K3 on a fat4 subtree chunk, K7 on a fat2 one, K8 on a single-leaf
+    one (its fused walk is K8 closest then K8 any)."""
     from nebulae_tpu_torch.kernels import trace as kt
 
+    if "fatnodes" in c:
+        return (lambda a, b, t: kt.closest_hit_fat(a, b, c, t),
+                lambda a, b, t, w: kt.closest_hit_fat_plain(a, b, c, t, work=w),
+                lambda a, b, l_, tb, tl: kt.shadow_closest_fat(a, b, l_, c, tb, tl),
+                lambda a, b, l_, tb, tl, w: kt.shadow_closest_fat_plain(a, b, l_, c, tb, tl, work=w),
+                lambda a, b, t: kt.any_hit_fat(a, b, c, t),
+                lambda a, b, t, w: kt.any_hit_fat_plain(a, b, c, t, work=w))
     if "fat4nodes" in c:
         return (lambda a, b, t: kt.closest_hit_fat4(a, b, c, t),
                 lambda a, b, t, w: kt.closest_hit_fat4_plain(a, b, c, t, work=w),
@@ -709,13 +751,7 @@ def large_phase(base_cfg) -> tuple[dict, dict]:
     ref = outs["auto"]
     assert torch.equal(outs["paged"]["ldr"], ref["ldr"]), "paged frame differs from the single-table frame"
     for mode in ("tri", "subtree"):
-        a = outs[mode]
-        assert torch.equal(a["hit"], ref["hit"]), f"{mode} hit mask differs"
-        close = torch.isclose(a["ldr"], ref["ldr"], rtol=1e-3, atol=1e-4).all(dim=-1).float().mean()
-        same = (a["ldr"] == ref["ldr"]).all(dim=-1).float().mean()
-        assert float(close) >= 0.99, f"{mode}: only {float(close):.4f} of pixels agree with auto"
-        log(f"large frame {mode}: {float(close):.6f} of pixels within rtol 1e-3 / atol 1e-4 of auto, "
-            f"{float(same):.6f} bit-identical")
+        hold_frame(f"large frame {mode}", outs[mode], ref, "auto")
     del renderers, auto, outs, ref
     clock.done("large 247k frames")
 
@@ -795,6 +831,237 @@ def large_phase(base_cfg) -> tuple[dict, dict]:
     cam_box_arrays = make_camera_arrays(cam_box, WIDTH, HEIGHT, dev)
     log(f"box train step: launches {json.dumps(step_launches(rb8, cam_box_arrays, wrappers))}")
     clock.done("box frame")
+    return report, launches
+
+
+def instance_moves(fs):
+    """Per-instance 3x4 transforms for update_instances: every third torus
+    turns 0.5 rad about the vertical through its centre and slides 0.3
+    along x, inside the scene's extents; the rest and the ground plane (the
+    last instance) stay."""
+    import numpy as np
+
+    n = int(fs.instance_of_tri.max()) + 1
+    moves = np.tile(np.eye(3, 4, dtype=np.float32), (n, 1, 1))
+    c, s = np.cos(0.5), np.sin(0.5)
+    rot = np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]], np.float32)
+    for i in range(0, n - 1, 3):
+        centre = fs.tri_pos[fs.instance_of_tri == i].reshape(-1, 3).mean(axis=0)
+        moves[i, :, :3] = rot
+        moves[i, :, 3] = centre + np.float32([0.3, 0.0, 0.0]) - rot @ centre
+    return moves
+
+
+def rebuilt(fs, renderer):
+    """A Renderer built from scratch (its own BVH and tables) on a refit
+    renderer's triangles, copied back so that the geometry is bit-identical."""
+    import dataclasses
+
+    from nebulae_tpu_torch.engine.renderer import Renderer
+
+    host = {k: renderer.scene[k].cpu().numpy() for k in ("tri_pos", "tri_nrm", "tri_face_nrm")}
+    return Renderer(dataclasses.replace(fs, **host), renderer.cfg)
+
+
+def timed_updates(fn) -> list[float]:
+    """1 warm-up and 3 timed calls of fn on the host clock, each closed by a
+    sync: the seconds of the warm-up, then the timed ms."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    times = [time.perf_counter() - t0]
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def dynamic_frames(tag, fs, renderer, cam_obj, wrappers):
+    """update_instances on a renderer: its seconds, then 1 + 3 frames held
+    against a rebuild on the moved triangles and against the frame before
+    the move.  Returns the launch counts of the refit frames."""
+    import torch
+
+    from nebulae_tpu_torch.engine.renderer import init_frame_state
+
+    route = renderer.route
+    before, _, _, _ = _frames(renderer, cam_obj, wrappers)
+    moves = instance_moves(fs)
+    times = timed_updates(lambda: renderer.update_instances(moves))
+    log(f"dynamic {tag}: route {route} -> {renderer.route}; update_instances first call {times[0]:.3f} s, "
+        f"then {statistics.mean(times[1:]):.2f} ms (runs {[round(t, 2) for t in times[1:]]})")
+    # The refit's device time, idle share and host syncs (the closing
+    # synchronize is the only one it should show).
+    profile_frame(lambda: renderer.update_instances(moves), (), statistics.mean(times[1:]), phases=(),
+                  what="update_instances")
+    renderer.state = init_frame_state(renderer.cfg, renderer.device)
+    out, mean_ms, ftimes, n = _frames(renderer, cam_obj, wrappers)
+    t0 = time.perf_counter()
+    ref_r = rebuilt(fs, renderer)
+    log(f"dynamic {tag}: rebuild (BVH and tables) {time.perf_counter() - t0:.2f} s, route {ref_r.route}")
+    ref, ref_ms, _, _ = _frames(ref_r, cam_obj, wrappers)
+    moved = (out["ldr"] != before["ldr"]).any(dim=-1).float().mean()
+    assert float(moved) > 0.01, f"dynamic {tag}: the frame did not change after the move"
+    log(f"dynamic {tag}: refit frame {mean_ms:.2f} ms (frames {[round(t, 2) for t in ftimes]}), rebuilt "
+        f"{ref_ms:.2f} ms; {float(moved):.4f} of pixels changed by the move; launches "
+        f"{json.dumps({k: v for k, v in n.items() if v})}")
+    hold_frame(f"dynamic {tag}", out, ref, "the rebuild")
+    # Refit boxes are looser than a fresh build's: the walks' device time on
+    # each (the names match the fat2 and fat4 kernels alike).
+    walks = ("closest_fat", "combo_fat", "any_fat")
+    profile_frame(lambda: renderer.render(cam_obj), walks, mean_ms, what=f"{tag} refit frame")
+    profile_frame(lambda: ref_r.render(cam_obj), walks, ref_ms, what=f"{tag} rebuilt frame")
+    del ref_r, before, out, ref
+    torch.cuda.empty_cache()
+    return n
+
+
+def fat2_phase(base_cfg, fs, bvh) -> tuple[dict, dict]:
+    """Phase 8: bvh_wide=2 (K7) and dynamic scenes.  Returns (report
+    entries, launch counts) of K7, counted over the fat2 frames."""
+    import dataclasses
+
+    import torch
+
+    from nebulae_tpu_torch.bvh.cbuilder import build_bvh_native
+    from nebulae_tpu_torch.engine.renderer import Renderer
+    from nebulae_tpu_torch.kernels import svgf as ksvgf
+    from nebulae_tpu_torch.kernels import trace as kt
+    from nebulae_tpu_torch.passes.gbuffer import make_camera_arrays
+    from nebulae_tpu_torch.utils.testscenes import bench_camera, large_scene
+
+    dev = torch.device("cuda")
+    report, launches = {}, {}
+    clock = PhaseClock()
+    wrappers = {f.__name__: f for f in kt.WRAPPERS}
+    wrappers["atrous_fwd"] = ksvgf.atrous_step
+    cfg = dataclasses.replace(base_cfg, lean_outputs=False)
+    cfg2 = dataclasses.replace(cfg, bvh_wide=2)
+
+    # 8a. K7 against its plain versions over the bench scene's fat2 table.
+    t0 = time.perf_counter()
+    r2 = Renderer(fs, cfg2, bvh=bvh)
+    setup = time.perf_counter() - t0
+    tab = r2.tables
+    log(f"fat2: route {r2.route}, {tab['fatnodes'].shape[0]} fat2 rows, {tab['tris'].shape[0]} slots, "
+        f"{table_bytes(tab)} B (JAX layout {jax_layout_bytes(tab)} B), stack depth {tab['stack_depth']}, "
+        f"set up in {setup:.2f} s")
+    assert r2.route == "single" and "fatnodes" in tab, f"bvh_wide=2 took route {r2.route}"
+    r4 = Renderer(fs, cfg, bvh=bvh)
+    t4 = r4.tables
+    cam_obj = bench_camera(fs)
+    cam = make_camera_arrays(cam_obj, WIDTH, HEIGHT, dev)
+    (o, d), (ro, rb, rl), _, _ = path_rays(r2.scene, lambda a, b: kt.closest_hit_fat(a, b, tab), r2.sun, cam)
+    held = {}
+    for name, tag, fn in (
+        ("closest_fat", "K7a closest", lambda h: hold_closest(
+            h, "K7a", lambda a, b, t: kt.closest_hit_fat(a, b, tab, t),
+            lambda a, b, t, w: kt.closest_hit_fat_plain(a, b, tab, t, work=w), o, d, tab)),
+        ("shadow_closest_fat", "K7b fused", lambda h: hold_combo(
+            h, "K7b", lambda a, b, l_, tb, tl: kt.shadow_closest_fat(a, b, l_, tab, tb, tl),
+            lambda a, b, l_, tb, tl, w: kt.shadow_closest_fat_plain(a, b, l_, tab, tb, tl, work=w),
+            ro, rb, rl, tab)),
+        ("any_fat", "K7c any", lambda h: hold_any(
+            h, "K7c", lambda a, b, t: kt.any_hit_fat(a, b, tab, t),
+            lambda a, b, t, w: kt.any_hit_fat_plain(a, b, tab, t, work=w), ro, rl, tab)),
+    ):
+        h = Held()
+        held[name] = fn(h)
+        report[name] = h.entry()
+        log(f"{tag}: kernel {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms ({h.by}), "
+            f"max err {h.err:.3g}, work {h.work}")
+    # The same rays through K1-K3 over the fat4 table: the same t and occ
+    # (the two layouts may keep another triangle only at an exact t tie).
+    one = kt.closest_hit_fat4(o, d, t4)
+    hs, os_ = kt.shadow_closest_fat4(ro, rb, rl, t4)
+    assert torch.equal(one["t"], held["closest_fat"]["t"]), "K7a and K1 differ in t"
+    assert torch.equal(hs["t"], held["shadow_closest_fat"][0]["t"]) and torch.equal(
+        os_, held["shadow_closest_fat"][1]), "K7b and K2 differ"
+    assert torch.equal(kt.any_hit_fat4(ro, rl, t4), held["any_fat"]), "K7c and K3 differ"
+    ms4 = (timed_ms(lambda: kt.closest_hit_fat4(o, d, t4)), timed_ms(lambda: kt.shadow_closest_fat4(ro, rb, rl, t4)),
+           timed_ms(lambda: kt.any_hit_fat4(ro, rl, t4)))
+    log(f"fat4 on the same rays: K1 {ms4[0]:.3f} ms, K2 {ms4[1]:.3f} ms, K3 {ms4[2]:.3f} ms; "
+        f"tri differs at {int((one['tri'] != held['closest_fat']['tri']).sum())} primary rays (t ties)")
+    del o, d, ro, rb, rl, held, one, hs, os_
+    clock.done("fat2 kernels")
+
+    # 8b. Frames (the fat2 route's main path) and train steps; the frame
+    # against the fat4 frame.
+    out4, ms4f, times4, _ = _frames(r4, cam_obj, wrappers)
+    out2, ms2f, times2, n = _frames(r2, cam_obj, wrappers)
+    log(f"fat2 frame: {ms2f:.2f} ms/frame (frames {[round(t, 2) for t in times2]}); fat4 frame "
+        f"{ms4f:.2f} ms (frames {[round(t, 2) for t in times4]}); launches "
+        f"{json.dumps({k: v for k, v in n.items() if v})}")
+    _read_launches(launches, n, ("closest_fat", "shadow_closest_fat", "any_fat"))
+    assert n["closest_hit_fat4"] == n["shadow_closest_fat4"] == n["any_hit_fat4"] == 0, "K1-K3 ran on fat2"
+    hold_frame("fat2 frame", out2, out4, "the fat4 frame")
+    profile_frame(lambda: r2.render(cam_obj), FAT2_KERNELS, ms2f, what="fat2 frame")
+    del out2, out4, r4
+    fat2_counts = {k: new_wrappers()[k] for k in ("closest_fat", "shadow_closest_fat", "any_fat")}
+    train_phase(r2, cam, dataclasses.replace(base_cfg, bvh_wide=2),
+                {**fat2_counts, "atrous_fwd": ksvgf.atrous_step}, kernel_names=FAT2_KERNELS)
+    del r2
+    torch.cuda.empty_cache()
+    clock.done("fat2 frames and train")
+
+    # 8c. The 247k scene with bvh_wide=2 under auto: two fat2 subtree chunks.
+    fs_l = large_scene(seed=0)
+    bvh_l = build_bvh_native(fs_l.tri_pos, max_leaf=15)
+    t0 = time.perf_counter()
+    big2 = Renderer(fs_l, cfg2, bvh=bvh_l)
+    setup = time.perf_counter() - t0
+    chunks = big2.tables.get("chunks", [])
+    log(f"fat2 large: {fs_l.num_triangles} triangles -> route {big2.route}, {len(chunks)} chunks "
+        f"{[('fatnodes' in c and 'fat2') or 'node' for c in chunks]}, {table_bytes(big2.tables)} B "
+        f"(JAX layout {jax_layout_bytes(big2.tables)} B), stack depths {[c['stack_depth'] for c in chunks]}, "
+        f"set up in {setup:.2f} s")
+    assert big2.route == "subtree" and len(chunks) == 2 and all("fatnodes" in c for c in chunks), big2.route
+    big4 = Renderer(fs_l, cfg, bvh=bvh_l)
+    assert big4.route == "single", big4.route
+    cam_obj_l = bench_camera(fs_l)
+    cam_l = make_camera_arrays(cam_obj_l, WIDTH, HEIGHT, dev)
+    (o, d), (ro, rb, rl), _, _ = path_rays(
+        big4.scene, lambda a, b: kt.closest_hit_fat4(a, b, big4.tables), big4.sun, cam_l)
+    held, (best, best_b, occ_l, occ) = hold_chain("K7 chain", chunks, _chunk_fns, (o, d), (ro, rb, rl))
+    hs, os_ = kt.shadow_closest_fat4(ro, rb, rl, big4.tables)
+    assert torch.equal(best["t"], kt.closest_hit_fat4(o, d, big4.tables)["t"]), "K7 closest chain differs"
+    assert torch.equal(best_b["t"], hs["t"]) and torch.equal(occ_l, os_), "K7 fused chain differs"
+    assert torch.equal(occ, kt.any_hit_fat4(ro, rl, big4.tables)), "K7 any chain differs"
+    for kind, h in zip(("closest", "shadow_closest", "any"), held):
+        log(f"K7 chain {kind} over {len(chunks)} chunks: kernels {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, "
+            f"bound {h.bound:.4f} ms ({h.by}), max err {h.err:.3g}, work {h.work}")
+    del o, d, ro, rb, rl, best, best_b, occ_l, occ, hs, os_
+    out4, ms4f, times4, _ = _frames(big4, cam_obj_l, wrappers)
+    out2, ms2f, times2, n = _frames(big2, cam_obj_l, wrappers)
+    log(f"fat2 large frame: {ms2f:.2f} ms/frame (frames {[round(t, 2) for t in times2]}); fat4 auto "
+        f"{ms4f:.2f} ms (frames {[round(t, 2) for t in times4]}); launches "
+        f"{json.dumps({k: v for k, v in n.items() if v})}")
+    assert n["closest_hit_fat"] > 0 and n["shadow_closest_fat"] > 0 and n["any_hit_fat"] > 0, "K7 chains idle"
+    hold_frame("fat2 large frame", out2, out4, "the 247k auto fat4 frame")
+    profile_frame(lambda: big2.render(cam_obj_l), FAT2_KERNELS, ms2f, what="fat2 chunks frame")
+    del out2, out4, big2, big4
+    torch.cuda.empty_cache()
+    clock.done("fat2 large")
+
+    # 8d. Dynamic scenes: update_instances on the bench scene's fat4, fat2
+    # and paged tables, then the 247k scene on the subtree route, which the
+    # first update switches to paged.
+    for tag, route_cfg in (("fat4", cfg), ("fat2", cfg2), ("paged", dataclasses.replace(cfg, chunk_mode="paged"))):
+        r = Renderer(fs, route_cfg, bvh=bvh)
+        dynamic_frames(tag, fs, r, cam_obj, wrappers)
+        del r
+    r = Renderer(fs_l, dataclasses.replace(cfg, chunk_mode="subtree"), bvh=bvh_l)
+    assert r.route == "subtree", r.route
+    n = dynamic_frames("247k subtree", fs_l, r, cam_obj_l, wrappers)
+    assert r.route == "paged" and n["closest_hit_fat4_paged"] > 0, f"after the refit: route {r.route}"
+    del r
+    torch.cuda.empty_cache()
+    clock.done("dynamic")
     return report, launches
 
 
@@ -1019,7 +1286,13 @@ def main() -> int:
     launches.update(large_launches)
     clock.t = time.perf_counter()
 
-    # 8. summary
+    # 8. fat2 and dynamic: bvh_wide=2 (K7) and refit on every single-table route
+    fat2_report, fat2_launches = fat2_phase(cfg, fs, bvh)
+    report.update(fat2_report)
+    launches.update(fat2_launches)
+    clock.t = time.perf_counter()
+
+    # 9. summary
     sources = {
         "closest_fat4": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1202"),
         "shadow_closest_fat4": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1415"),
@@ -1039,10 +1312,14 @@ def main() -> int:
         # K8: the one-node kernels.
         "closest_node": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:794"),
         "any_node": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:881"),
+        # K7: the fat2 kernels.
+        "closest_fat": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:958"),
+        "shadow_closest_fat": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1563"),
+        "any_fat": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1044"),
     }
     # K1-K4 counted over the forward frames, K5 over the train steps; K6b
     # over the 247k tri route's frames, K6a over the ~2M scene's frames, K8
-    # over the box scene's frame.
+    # over the box scene's frame, K7 over the bench scene's fat2 frames.
     launches["atrous_bwd"] = train_launches["atrous_bwd"]
     kernels = []
     for name, (src, replaces) in sources.items():

@@ -1,4 +1,5 @@
-"""Nebulae on PyTorch and CUDA: the forward frame of `nebulae_tpu`, ported.
+"""Nebulae on PyTorch and CUDA: `nebulae_tpu`'s forward frame, train step,
+large-scene routes, fat2 tables and dynamic scenes (BVH refit), ported.
 
 A second package beside the JAX one.  Module names mirror `nebulae_tpu`
 (`core/rng.py` <-> `core/rng.py`, ...); the traversal and a-trous kernels are

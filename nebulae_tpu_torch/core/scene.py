@@ -2,8 +2,8 @@
 
 Counterpart of `nebulae_tpu/core/scene.py` without glTF loading: the same
 `FlatScene` fields, the same `device_arrays()` dict (bit for bit, a test
-checks it), `pack_geometry_rows`, `extend_atlas_mips` and
-`quad_pack_atlas`.  `to_tensors` moves a `device_arrays()` dict onto a
+checks it), `pack_geometry_rows`, `extend_atlas_mips`, `quad_pack_atlas`
+and `transform_instances`.  `to_tensors` moves a `device_arrays()` dict onto a
 torch device.
 
 Layout (T triangles, M materials): tri_pos/tri_nrm [T, 3, 3] f32,
@@ -215,6 +215,25 @@ def pack_geometry_rows(
         [tri_nrm.reshape(t, 9), tri_face_nrm, matf[:, None]], axis=1
     ).astype(np.float32)
     return tri_geom, tri_fast
+
+
+def transform_instances(base_tri_pos, base_tri_nrm, instance_of_tri, transforms):
+    """Rigid per-instance 3x4 transforms of instanced triangles (the
+    counterpart of nebulae_tpu's transform_instances).  Each triangle maps
+    through its instance's matrix; the rotation part also turns the vertex
+    normals, which are renormalised (rigid or uniform-scale transforms).
+
+    base_tri_pos / base_tri_nrm [T, 3, 3] and instance_of_tri [T] are
+    tensors on one device; transforms [I, 3, 4] (rows are world rows, the
+    last column the translation) may be numpy.  Returns (tri_pos, tri_nrm)
+    on that device."""
+    dev = base_tri_pos.device
+    m = torch.as_tensor(np.asarray(transforms, np.float32)).to(dev)[instance_of_tri.long()]
+    r, t = m[..., :3], m[..., 3]
+    pos = torch.einsum("tij,tvj->tvi", r, base_tri_pos) + t[:, None, :]
+    nrm = torch.einsum("tij,tvj->tvi", r, base_tri_nrm)
+    nrm = nrm / torch.clamp(torch.linalg.vector_norm(nrm, dim=-1, keepdim=True), min=1e-12)
+    return pos, nrm
 
 
 def face_normals(tri_pos: np.ndarray, tri_nrm: np.ndarray) -> np.ndarray:

@@ -1,6 +1,6 @@
 // BVH traversal kernels: fat4 closest hit, fused shadow+bounce and any hit
-// (K1-K3, each also built with a leaf slot gate: K6b), and the one-node
-// closest and any hit (K8).
+// (K1-K3, each also built with a leaf slot gate: K6b), the fat2 closest,
+// fused and any hit (K7), and the one-node closest and any hit (K8).
 //
 // Replaces the Pallas packet kernels in nebulae_tpu/kernels/pallas_trace.py:
 //   K1 _make_closest_fat4_kernel (pallas_closest_hit_fat4)
@@ -11,6 +11,10 @@
 //       [lo, hi), reading row first - lo of a triangle chunk
 //   K6a the paged=True builds: on the GPU the triangle table stays in device
 //       memory and the caches do the paging, so the paged route runs K1-K3
+//   K7 _closest_fat_kernel / _combo_fat_kernel / _any_fat_kernel
+//       (pallas_closest_hit_fat / pallas_shadow_closest_fat /
+//       pallas_any_hit_fat), both children's boxes per visit over
+//       pack_bvh_fat's rows (bvh_wide=2)
 //   K8 _closest_kernel / _any_kernel (pallas_closest_hit / pallas_any_hit),
 //       one BVH2 node per visit over pack_bvh_for_pallas's rows
 // They compute the same hit records over the same fat4 tables (grandchild
@@ -29,10 +33,11 @@
 // needs a few hundred FLOPs per visited node.  A ~2M-triangle scene packs to
 // ~110 MB, past the L2: there the walk also waits on device memory, which
 // chip_smoke.py measures on the paged route.  The design keeps every load
-// a contiguous row (a node is 128 bytes, a triangle 40) read through the
-// read-only path, and relies on the caller sorting rays for coherence so
-// that neighbouring threads walk the same rows.  Warp divergence is the
-// known cost left for a later optimisation (persistent threads, wide loads).
+// a contiguous row (a fat4 node is 128 bytes, a fat2 node 64, a triangle 40)
+// read through the read-only path, and relies on the caller sorting rays for
+// coherence so that neighbouring threads walk the same rows.  Warp divergence
+// is the known cost left for a later optimisation (persistent threads, wide
+// loads).
 //
 // Build with --fmad=false: the plain PyTorch version rounds after every
 // multiply and add, and nvcc would otherwise contract a*b-c into an FMA.
@@ -438,6 +443,197 @@ __global__ void any_node_kernel(const float* __restrict__ o, const float* __rest
   occ_out[i] = occ;
 }
 
+// K7: fat2 rows [n_inner, 16] f32: the left child's box at 0, the right
+// child's at 6, then encL, encR and the order meta axis*2 + left_is_lower as
+// int32 bits.  Both boxes are tested against the cap the visit starts with;
+// the left leaf child's triangles are intersected, then the right one's;
+// at most two pushes.
+constexpr int kFatStride = 16;
+
+struct FatFields {
+  int field[2];
+  int meta[2];
+  int om;
+};
+
+__device__ __forceinline__ FatFields decode_fat(const float* __restrict__ row) {
+  FatFields f;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    int enc = __float_as_int(__ldg(row + 12 + k));
+    f.field[k] = enc & 31;
+    f.meta[k] = enc >> 5;
+  }
+  f.om = __float_as_int(__ldg(row + 14));
+  return f;
+}
+
+// Push the hit inner children, far first and near on top (K7a/K7b order).
+__device__ __forceinline__ void push_fat_near_first(int* stack, int& sp, const FatFields& f,
+                                                    const bool* ok, const bool* pos) {
+  int nk = near_first(f.om, pos) ? 0 : 1;
+  int fk = 1 - nk;
+  if (ok[fk]) stack[sp++] = f.meta[fk];
+  if (ok[nk]) stack[sp++] = f.meta[nk];
+}
+
+__global__ void closest_fat_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                                   const float* __restrict__ tmax, int tmax_stride,
+                                   const float* __restrict__ nodes,
+                                   const float* __restrict__ tris, int G, int n,
+                                   float* __restrict__ t_out, int32_t* __restrict__ tri_out,
+                                   float* __restrict__ u_out, float* __restrict__ v_out) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Ray r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1], d[3 * i + 2]);
+  float bt = tmax[i * tmax_stride];
+  int btri = -1;
+  float bu = 0.0f, bv = 0.0f;
+  if (!is_dead(r.ox, r.dx, r.dy, r.dz) && bt > kEps) {
+    int stack[kStackMax];
+    int sp = 0;
+    stack[sp++] = 0;
+    while (sp > 0) {
+      const float* row = nodes + static_cast<int64_t>(stack[--sp]) * kFatStride;
+      bool box[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) box[k] = slab(row, k, r, bt);
+      FatFields f = decode_fat(row);
+      for (int k = 0; k < 2; ++k) {
+        if (!(box[k] && is_leaf(f.field[k]))) continue;
+        for (int s = 0; s < f.field[k]; ++s) {
+          const float* slot = tris + (static_cast<int64_t>(f.meta[k]) + s) * G * kTriStride;
+          for (int g = 0; g < G; ++g) {
+            const float* tv = slot + g * kTriStride;
+            float t, u, v;
+            if (moller(tv, r, bt, t, u, v)) {
+              bt = t;
+              btri = __float_as_int(__ldg(tv + 9));
+              bu = u;
+              bv = v;
+            }
+          }
+        }
+      }
+      bool ok[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) ok[k] = box[k] && f.field[k] >= kInnerField;
+      push_fat_near_first(stack, sp, f, ok, r.pos);
+    }
+  }
+  t_out[i] = btri >= 0 ? bt : __int_as_float(0x7f800000);
+  tri_out[i] = btri;
+  u_out[i] = bu;
+  v_out[i] = bv;
+}
+
+__global__ void combo_fat_kernel(const float* __restrict__ o, const float* __restrict__ b,
+                                 const float* __restrict__ l, const float* __restrict__ tmax_b,
+                                 int sb, const float* __restrict__ tmax_l, int sl,
+                                 const float* __restrict__ nodes,
+                                 const float* __restrict__ tris, int G, int n,
+                                 float* __restrict__ t_out, int32_t* __restrict__ tri_out,
+                                 float* __restrict__ u_out, float* __restrict__ v_out,
+                                 bool* __restrict__ occ_out) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
+  Ray rb = make_ray(ox, oy, oz, b[3 * i], b[3 * i + 1], b[3 * i + 2]);
+  Ray rl = make_ray(ox, oy, oz, l[3 * i], l[3 * i + 1], l[3 * i + 2]);
+  float bt = tmax_b[i * sb];
+  float cap_l = tmax_l[i * sl];
+  bool live_b = !is_dead(ox, rb.dx, rb.dy, rb.dz) && bt > kEps;
+  bool live_l = !is_dead(ox, rl.dx, rl.dy, rl.dz) && cap_l > kEps;
+  int btri = -1;
+  float bu = 0.0f, bv = 0.0f;
+  bool occ = false;
+  if (live_b || live_l) {
+    int stack[kStackMax];
+    int sp = 0;
+    stack[sp++] = 0;
+    while (sp > 0) {
+      const float* row = nodes + static_cast<int64_t>(stack[--sp]) * kFatStride;
+      bool box_b[2], box_l[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        box_b[k] = live_b && slab(row, k, rb, bt);
+        box_l[k] = live_l && !occ && slab(row, k, rl, cap_l);
+      }
+      FatFields f = decode_fat(row);
+      for (int k = 0; k < 2; ++k) {
+        if (!((box_b[k] || box_l[k]) && is_leaf(f.field[k]))) continue;
+        for (int s = 0; s < f.field[k]; ++s) {
+          const float* slot = tris + (static_cast<int64_t>(f.meta[k]) + s) * G * kTriStride;
+          for (int g = 0; g < G; ++g) {
+            const float* tv = slot + g * kTriStride;
+            float t, u, v;
+            // The bounce hit is gated by the bounce box, the shadow hit by
+            // the shadow box and its own cap.
+            if (box_b[k] && moller(tv, rb, bt, t, u, v)) {
+              bt = t;
+              btri = __float_as_int(__ldg(tv + 9));
+              bu = u;
+              bv = v;
+            }
+            if (box_l[k] && !occ && moller(tv, rl, cap_l, t, u, v)) occ = true;
+          }
+        }
+      }
+      bool ok[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) ok[k] = (box_b[k] || box_l[k]) && f.field[k] >= kInnerField;
+      push_fat_near_first(stack, sp, f, ok, rb.pos);
+    }
+  }
+  t_out[i] = btri >= 0 ? bt : __int_as_float(0x7f800000);
+  tri_out[i] = btri;
+  u_out[i] = bu;
+  v_out[i] = bv;
+  occ_out[i] = occ;
+}
+
+__global__ void any_fat_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                               const float* __restrict__ tmax, int tmax_stride,
+                               const float* __restrict__ nodes,
+                               const float* __restrict__ tris, int G, int n,
+                               bool* __restrict__ occ_out) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Ray r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1], d[3 * i + 2]);
+  float cap = tmax[i * tmax_stride];
+  bool occ = false;
+  if (!is_dead(r.ox, r.dx, r.dy, r.dz) && cap > kEps) {
+    int stack[kStackMax];
+    int sp = 0;
+    stack[sp++] = 0;
+    while (sp > 0 && !occ) {
+      const float* row = nodes + static_cast<int64_t>(stack[--sp]) * kFatStride;
+      bool box[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) box[k] = slab(row, k, r, cap);
+      FatFields f = decode_fat(row);
+      for (int k = 0; k < 2 && !occ; ++k) {
+        if (!(box[k] && is_leaf(f.field[k]))) continue;
+        for (int s = 0; s < f.field[k] && !occ; ++s) {
+          const float* slot = tris + (static_cast<int64_t>(f.meta[k]) + s) * G * kTriStride;
+          for (int g = 0; g < G; ++g) {
+            float t, u, v;
+            if (moller(slot + g * kTriStride, r, cap, t, u, v)) {
+              occ = true;
+              break;
+            }
+          }
+        }
+      }
+      // JAX's any-hit order: left pushed first, right on top.
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        if (box[k] && f.field[k] >= kInnerField) stack[sp++] = f.meta[k];
+    }
+  }
+  occ_out[i] = occ;
+}
+
 inline int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
@@ -508,6 +704,36 @@ int nb_any_fat4_slots(const float* o, const float* d, const float* tmax, int tma
   if (n > 0) {
     any_fat4_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         o, d, tmax, tmax_stride, nodes, tris, G, n, occ, SlotRange{slot_lo, slot_hi});
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7 over fat2 rows.
+int nb_closest_fat(const float* o, const float* d, const float* tmax, int tmax_stride,
+                   const float* nodes, const float* tris, int G, int n, float* t, int32_t* tri,
+                   float* u, float* v, void* stream) {
+  if (n > 0) {
+    closest_fat_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        o, d, tmax, tmax_stride, nodes, tris, G, n, t, tri, u, v);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int nb_combo_fat(const float* o, const float* b, const float* l, const float* tmax_b, int sb,
+                 const float* tmax_l, int sl, const float* nodes, const float* tris, int G,
+                 int n, float* t, int32_t* tri, float* u, float* v, bool* occ, void* stream) {
+  if (n > 0) {
+    combo_fat_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        o, b, l, tmax_b, sb, tmax_l, sl, nodes, tris, G, n, t, tri, u, v, occ);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int nb_any_fat(const float* o, const float* d, const float* tmax, int tmax_stride,
+               const float* nodes, const float* tris, int G, int n, bool* occ, void* stream) {
+  if (n > 0) {
+    any_fat_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        o, d, tmax, tmax_stride, nodes, tris, G, n, occ);
   }
   return static_cast<int>(cudaGetLastError());
 }

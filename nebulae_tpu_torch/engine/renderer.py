@@ -1,12 +1,13 @@
 """Frame orchestration: G-buffer, path trace, SVGF and ACES in one call.
 
 Counterpart of `nebulae_tpu/engine/renderer.py` (`init_frame_state`,
-`render_frame`, `Renderer.__init__` and `render`).  PyTorch runs eagerly,
-so the frame is a plain function; the frame state is a dict of tensors
-plus the frame counter and the history-reset flag as Python values.
-`pack_scene_tables` routes a scene to its traversal tables branch for
-branch as the JAX Renderer does (one table, paged, tri-chunked,
-subtree-chunked or one-node).
+`render_frame` and the `Renderer` with its runtime API: `render`,
+`update_geometry`, `update_instances`, `resize`, `update_config`).
+PyTorch runs eagerly, so the frame is a plain function; the frame state is
+a dict of tensors plus the frame counter and the history-reset flag as
+Python values.  `pack_scene_tables` routes a scene to its traversal tables
+branch for branch as the JAX Renderer does (one fat4 or fat2 table, paged,
+tri-chunked, subtree-chunked or one-node).
 The frame's phases run under `record_function` ranges named
 "nebulae/<phase>" (gbuffer, pathtrace, svgf, tonemap), so a profiler trace
 can attribute device time to them.
@@ -14,19 +15,26 @@ can attribute device time to them.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from nebulae_tpu_torch.bvh.cbuilder import build_bvh_for
+from nebulae_tpu_torch.bvh.refit import (
+    compute_levels, refit_bvh, repack_fat4_bounds, repack_fat_bounds, repack_node_bounds, repack_tris,
+)
 from nebulae_tpu_torch.config import RenderConfig, SunLight
 from nebulae_tpu_torch.core import brdf
 from nebulae_tpu_torch.core import rng as nrng
-from nebulae_tpu_torch.core.math import luminance
-from nebulae_tpu_torch.core.scene import FlatScene, to_tensors
+from nebulae_tpu_torch.core.math import cross, dot, luminance, normalize
+from nebulae_tpu_torch.core.scene import FlatScene, to_tensors, transform_instances
 from nebulae_tpu_torch.device import resolve_device
 from nebulae_tpu_torch.kernels import chunks as kc
-from nebulae_tpu_torch.kernels.trace import empty_tables, pack_bvh_fat4, pack_bvh_nodes, tables_to
+from nebulae_tpu_torch.kernels.trace import (
+    empty_tables, grouped_tri_ids, pack_bvh_fat, pack_bvh_fat4, pack_bvh_nodes, tables_to,
+)
 from nebulae_tpu_torch.passes.direct import shade_direct
 from nebulae_tpu_torch.passes.gbuffer import camera_rays, make_camera_arrays, render_gbuffer
 from nebulae_tpu_torch.passes.pathtrace import path_trace
@@ -52,25 +60,27 @@ def check_supported(cfg: RenderConfig) -> None:
 
 def pack_scene_tables(bvh, tri_pos: np.ndarray, cfg: RenderConfig) -> tuple[str, dict]:
     """(route, packed numpy tables) for a scene, by the JAX Renderer's rules
-    (`nebulae_tpu/engine/renderer.py:345-421`):
+    (`nebulae_tpu/engine/renderer.py:342-421`):
 
-      "single"  one fat4 table: up to SINGLE_TABLE_MAX_TRIS triangles, or
-                under "auto" while JAX's padded table bytes fit
+      "single"  one fat4 table (bvh_wide=4) or fat2 table (bvh_wide=2): up
+                to SINGLE_TABLE_MAX_TRIS triangles, or for fat4 under
+                "auto" while JAX's padded table bytes fit
                 SINGLE_TABLE_MAX_BYTES;
       "paged"   one fat4 table walked by the K6a wrappers: "auto" past the
                 byte gate when the scene is over 3 chunks of
                 MAX_CHUNK_TRIS, or chunk_mode="paged" at any size;
       "tri"     whole-tree nodes and triangle chunks (K6b), for "tri" above
                 SINGLE_TABLE_MAX_TRIS when pack_bvh_tri_chunks packs them;
-      "subtree" subtree chunk tables, for the other large-scene cases;
+      "subtree" subtree chunk tables (fat4 or fat2), for the other
+                large-scene cases and for every large fat2 scene;
       "node"    one-node tables (K8) when the root is a leaf.
 
-    bvh_wide=2 routes as JAX routes it (never paged or tri-chunked) but
-    packs fat4 tables, since the fat2 kernels are not ported.  The tables
-    carry "paged" (True on the paged route only)."""
+    The byte gate, paging and triangle chunks are fat4's only, as in JAX.
+    The tables carry "paged" (True on the paged route only)."""
     t_count = int(tri_pos.shape[0])
     g = cfg.bvh_tri_group
     wide4 = cfg.bvh_wide == 4
+    pack_fat = pack_bvh_fat4 if wide4 else pack_bvh_fat
     mode = cfg.chunk_mode
     if mode == "auto":
         mode = "subtree" if -(-t_count // kc.MAX_CHUNK_TRIS) <= 3 else "paged"
@@ -87,10 +97,11 @@ def pack_scene_tables(bvh, tri_pos: np.ndarray, cfg: RenderConfig) -> tuple[str,
         tri = kc.pack_bvh_tri_chunks(bvh, tri_pos, g) if mode == "tri" and wide4 else None
         if tri is not None:
             return "tri", {**tri, "paged": False}
-        return "subtree", {"chunks": kc.pack_bvh_chunks(bvh, tri_pos, tri_group=g), "paged": False}
-    fat4 = pack_bvh_fat4(bvh, tri_pos, g)
-    if fat4 is not None:
-        return "single", {**fat4, "paged": False}
+        chunks = kc.pack_bvh_chunks(bvh, tri_pos, tri_group=g, wide=cfg.bvh_wide)
+        return "subtree", {"chunks": chunks, "paged": False}
+    fat = pack_fat(bvh, tri_pos, g)
+    if fat is not None:
+        return "single", {**fat, "paged": False}
     return "node", {**pack_bvh_nodes(bvh, tri_pos, g), "paged": False}
 
 
@@ -201,7 +212,9 @@ class Renderer:
     """Owns the scene tensors, traversal tables, sun and frame state:
     build with a FlatScene, call `.render(camera)` per frame.  `route`
     names the tables' route (see pack_scene_tables; "empty" for a scene
-    without triangles, None without tables)."""
+    without triangles, None without tables).  `bvh` is the tables' FlatBVH
+    on the host (its topology; a refit keeps it), `node_lo` / `node_hi`
+    its bounds on the device, which `update_geometry` refits."""
 
     def __init__(self, flat_scene: FlatScene, cfg: RenderConfig, sun: SunLight | None = None,
                  bvh=None, device=None):
@@ -213,21 +226,145 @@ class Renderer:
         needs_tables = cfg.tracer == "pallas" or (
             cfg.tracer == "auto" and t_count > cfg.bruteforce_max_tris
         )
-        self.tables = self.route = None
+        self.tables = self.route = self.bvh = self.node_lo = self.node_hi = None
         if needs_tables:
             if t_count == 0:
                 self.route, packed = "empty", empty_tables()
             else:
                 if bvh is None:
                     bvh = build_bvh_for(self.device, flat_scene.tri_pos, max_leaf=cfg.bvh_max_leaf)
+                self.bvh = bvh
+                self.node_lo = torch.tensor(np.asarray(bvh.node_lo, np.float32), device=self.device)
+                self.node_hi = torch.tensor(np.asarray(bvh.node_hi, np.float32), device=self.device)
                 self.route, packed = pack_scene_tables(bvh, flat_scene.tri_pos, cfg)
             self.tables = tables_to(packed, self.device)
+        # Instance table and base triangles for update_instances.
+        self._instance_of_tri = None
+        if flat_scene.instance_of_tri is not None:
+            self._instance_of_tri = torch.as_tensor(np.asarray(flat_scene.instance_of_tri)).to(self.device)
+            self._base_tri_pos = self.scene["tri_pos"].clone()
+            self._base_tri_nrm = self.scene["tri_nrm"].clone()
+        self._refit = None
         self.sun = (sun if sun is not None else SunLight.default(self.device)).to(self.device)
         self.state = init_frame_state(cfg, self.device)
         self._last_cam = None
 
     def reset_history(self):
         self.state["reset_history"] = True
+
+    def resize(self, width: int, height: int):
+        """Reallocate the per-resolution state (the SVGF history and the
+        frame counter) at a new size; the scene, tables and sun stay."""
+        self.cfg = dataclasses.replace(self.cfg, width=width, height=height)
+        self.state = init_frame_state(self.cfg, self.device)
+
+    def update_config(self, cfg: RenderConfig):
+        """Swap the configuration between frames.  A resolution change
+        goes through `resize`; the tables stay as packed."""
+        if (cfg.width, cfg.height) != (self.cfg.width, self.cfg.height):
+            raise ValueError("update_config cannot change resolution; use resize()")
+        check_supported(cfg)
+        self.cfg = cfg
+
+    @torch.no_grad()
+    def update_instances(self, transforms):
+        """Move rigid instances: per-instance 3x4 transforms [I, 3, 4] map
+        the base (load-time) triangles and normals, then update_geometry
+        refits.  Needs a scene built with FlatScene.instance_of_tri."""
+        if self._instance_of_tri is None:
+            raise ValueError("scene has no instance table (FlatScene.instance_of_tri); "
+                             "use update_geometry for free-form motion")
+        pos, nrm = transform_instances(self._base_tri_pos, self._base_tri_nrm, self._instance_of_tri,
+                                       transforms)
+        self.update_geometry(pos, tri_nrm=nrm)
+
+    @torch.no_grad()
+    def update_geometry(self, tri_pos, tri_nrm=None):
+        """Dynamic scene: new world triangles [T, 3, 3] (and optionally
+        vertex normals [T, 3, 3]) with the same topology.  Rewrites the
+        scene's triangle rows, refits the BVH bounds and the route's tables
+        in place, on the device.  A chunked scene ("tri" or "subtree") is
+        first repacked to the "paged" route, as JAX does; a chunked fat2
+        scene raises NotImplementedError.  The scene's AABB keeps its
+        build-time value, so motion should stay inside it."""
+        if self.route in ("tri", "subtree"):
+            self._route_chunked_to_paged()
+        if self._refit is None:
+            self._refit = self._build_refit()
+        pos = torch.as_tensor(tri_pos, dtype=torch.float32).to(self.device)
+        nrm = None if tri_nrm is None else torch.as_tensor(tri_nrm, dtype=torch.float32).to(self.device)
+        self._refit(pos, nrm)
+
+    def _route_chunked_to_paged(self):
+        """Replace chunked tables by one fat4 table on the paged route,
+        packed from the build-time tree and the current triangles."""
+        if self.cfg.bvh_wide != 4:
+            raise NotImplementedError("refit over chunked fat2 tables is not supported; "
+                                      "use bvh_wide=4 or rebuild the Renderer")
+        packed = pack_bvh_fat4(self.bvh, self.scene["tri_pos"].cpu().numpy(), self.cfg.bvh_tri_group)
+        if packed is None:
+            raise RuntimeError("paged repack failed: the BVH root is a leaf")
+        self.tables = tables_to({**packed, "paged": True}, self.device)
+        self.route = "paged"
+        self._refit = None
+
+    def _build_refit(self):
+        """The refit for the current table structure: its host-static
+        levels and slot maps go to the device once."""
+        dev = self.device
+
+        def to_dev(x):
+            return torch.as_tensor(np.asarray(x, np.int64)).to(dev)
+
+        plan = None
+        if self.bvh is not None:
+            b = self.bvh
+            plan = {
+                "topo": {k: to_dev(getattr(b, k)) for k in ("node_first", "node_count", "node_right", "tri_index")},
+                "levels": [to_dev(level) for level in compute_levels(b)],
+                "max_leaf": int(np.asarray(b.node_count).max(initial=0)),
+                "slot_tri": to_dev(grouped_tri_ids(b, int(self.tables["tris"].shape[1]))),
+            }
+            if "fat4nodes" in self.tables:
+                plan["fat4_slots"] = to_dev(self.tables["fat4_slots"])
+            elif "fatnodes" in self.tables:
+                plan["inner_idx"] = to_dev(self.tables["inner_idx"])
+
+        def refit(pos, nrm):
+            scene = self.scene
+            t = pos.shape[0]
+            e1 = pos[:, 1] - pos[:, 0]
+            e2 = pos[:, 2] - pos[:, 0]
+            fn = normalize(cross(e1, e2))
+            # Geometric normals follow the average shading normal's side.
+            shade = scene["tri_nrm"] if nrm is None else nrm
+            flip = dot(fn, shade.mean(dim=1), keepdims=False) < 0.0
+            fn = torch.where(flip[:, None], -fn, fn)
+            geom = scene["tri_geom"].clone()
+            fast = scene["tri_fast"].clone()
+            geom[:, 0:3] = pos[:, 0]
+            geom[:, 3:6] = e1
+            geom[:, 6:9] = e2
+            fast[:, 9:12] = fn
+            if nrm is not None:
+                geom[:, 9:18] = nrm.reshape(t, 9)
+                fast[:, 0:9] = nrm.reshape(t, 9)
+                scene["tri_nrm"] = nrm
+            scene.update(tri_pos=pos, tri_face_nrm=fn, tri_geom=geom, tri_fast=fast)
+            if plan is None:
+                return
+            lo, hi = refit_bvh(plan["topo"], pos, plan["levels"], plan["max_leaf"])
+            self.node_lo, self.node_hi = lo, hi
+            tabs = self.tables
+            repack_tris(tabs["tris"], pos, plan["slot_tri"])
+            if "fat4nodes" in tabs:
+                repack_fat4_bounds(tabs["fat4nodes"], lo, hi, plan["fat4_slots"])
+            elif "fatnodes" in tabs:
+                repack_fat_bounds(tabs["fatnodes"], lo, hi, plan["inner_idx"], plan["topo"]["node_right"])
+            else:
+                repack_node_bounds(tabs["nodes"], lo, hi)
+
+        return refit
 
     @torch.no_grad()
     def render(self, camera, sun: SunLight | None = None) -> dict:

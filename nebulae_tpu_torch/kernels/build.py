@@ -42,6 +42,9 @@ SIGNATURES = {
     "nb_combo_fat4_slots": ([_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
                              _P, _P, _P, _P, _P, _P], _I),
     "nb_any_fat4_slots": ([_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P], _I),
+    "nb_closest_fat": ([_P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P], _I),
+    "nb_combo_fat": ([_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P], _I),
+    "nb_any_fat": ([_P, _P, _P, _I, _P, _P, _I, _I, _P, _P], _I),
     "nb_closest_node": ([_P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P], _I),
     "nb_any_node": ([_P, _P, _P, _I, _P, _P, _I, _I, _P, _P], _I),
     "nb_atrous_fwd": ([_P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _P, _P, _P], _I),

@@ -1,5 +1,5 @@
-"""Large-scene tables and their chained walks: subtree chunks (K6c) and
-triangle chunks (K6b), with the routing limits.
+"""Large-scene tables and their chained walks: subtree chunks (K6c, fat4 or
+fat2) and triangle chunks (K6b), with the routing limits.
 
 Replaces `nebulae_tpu/kernels/pallas_trace.py`'s pack_bvh_chunks,
 pack_bvh_tri_chunks, pallas_{closest,any,shadow_closest}_tri_chunks and
@@ -71,12 +71,14 @@ def _cut_roots(bvh, counts, max_tris: int) -> list[int]:
 
 
 def pack_bvh_chunks(bvh, tri_pos: np.ndarray, max_tris: int | None = None,
-                    tri_group: int = 8) -> list[dict]:
+                    tri_group: int = 8, wide: int = 4) -> list[dict]:
     """pack_bvh_chunks: cut the BVH into subtrees of at most max_tris
     (default MAX_CHUNK_TRIS) triangles; each becomes an independent table,
-    fat4 when its root is inner and one-node (K8) when it is a single leaf.
-    Triangle ids stay global; each chunk has its own stack_depth."""
+    fat4 (wide=4) or fat2 (any other width, as JAX packs it) when its root
+    is inner and one-node (K8) when it is a single leaf.  Triangle ids stay
+    global; each chunk has its own stack_depth."""
     max_tris = MAX_CHUNK_TRIS if max_tris is None else max_tris
+    pack_fat = kt.pack_bvh_fat4 if wide == 4 else kt.pack_bvh_fat
     is_leaf = np.asarray(bvh.node_count) > 0
     counts = _subtree_counts(bvh)
     chunks = []
@@ -92,8 +94,7 @@ def pack_bvh_chunks(bvh, tri_pos: np.ndarray, max_tris: int | None = None,
             node_right=np.where(leaf_mask, -1, bvh.node_right[r:e] - r).astype(np.int64),
             tri_index=bvh.tri_index[tri_base:tri_base + int(counts[r])],
         )
-        chunks.append(kt.pack_bvh_fat4(sub, tri_pos, tri_group)
-                      or kt.pack_bvh_nodes(sub, tri_pos, tri_group))
+        chunks.append(pack_fat(sub, tri_pos, tri_group) or kt.pack_bvh_nodes(sub, tri_pos, tri_group))
     return chunks
 
 
@@ -190,17 +191,23 @@ def shadow_closest_tri_chunks(o, b, l, tables: dict, t_max_b=float("inf"), t_max
 
 
 def _chunk_closest(o, d, c, t_max):
-    fn = kt.closest_hit_fat4 if "fat4nodes" in c else kt.closest_hit_node
-    return fn(o, d, c, t_max)
+    if "fat4nodes" in c:
+        return kt.closest_hit_fat4(o, d, c, t_max)
+    if "fatnodes" in c:
+        return kt.closest_hit_fat(o, d, c, t_max)
+    return kt.closest_hit_node(o, d, c, t_max)
 
 
 def _chunk_any(o, d, c, t_max):
-    fn = kt.any_hit_fat4 if "fat4nodes" in c else kt.any_hit_node
-    return fn(o, d, c, t_max)
+    if "fat4nodes" in c:
+        return kt.any_hit_fat4(o, d, c, t_max)
+    if "fatnodes" in c:
+        return kt.any_hit_fat(o, d, c, t_max)
+    return kt.any_hit_node(o, d, c, t_max)
 
 
 def closest_chunks(o, d, chunks: list, t_max=float("inf")):
-    """Closest hit over subtree chunks (pack_bvh_chunks): K1 or K8 per
+    """Closest hit over subtree chunks (pack_bvh_chunks): K1, K7a or K8 per
     chunk with tightening caps."""
     best = None
     for c in chunks:
@@ -210,7 +217,7 @@ def closest_chunks(o, d, chunks: list, t_max=float("inf")):
 
 
 def any_chunks(o, d, chunks: list, t_max=float("inf")):
-    """Any hit over subtree chunks: K3 or K8 per chunk, occluded rays
+    """Any hit over subtree chunks: K3, K7c or K8 per chunk, occluded rays
     ejected between chunks."""
     occ = _chunk_any(o, d, chunks[0], t_max)
     for c in chunks[1:]:
@@ -219,8 +226,8 @@ def any_chunks(o, d, chunks: list, t_max=float("inf")):
 
 
 def shadow_closest_chunks(o, b, l, chunks: list, t_max_b=float("inf"), t_max_l=float("inf")):
-    """Fused shadow+bounce over subtree chunks: K2 per fat4 chunk, K8
-    closest then K8 any on a single-leaf chunk."""
+    """Fused shadow+bounce over subtree chunks: K2 per fat4 chunk, K7b per
+    fat2 chunk, K8 closest then K8 any on a single-leaf chunk."""
     tb, tl = _per_ray(t_max_b, o), _per_ray(t_max_l, o)
     best = None
     occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
@@ -229,6 +236,8 @@ def shadow_closest_chunks(o, b, l, chunks: list, t_max_b=float("inf"), t_max_l=f
         cap_l = torch.where(occ, 0.0, tl)
         if "fat4nodes" in c:
             hit, o2 = kt.shadow_closest_fat4(o, b, l, c, cap_b, cap_l)
+        elif "fatnodes" in c:
+            hit, o2 = kt.shadow_closest_fat(o, b, l, c, cap_b, cap_l)
         else:
             hit, o2 = kt.closest_hit_node(o, b, c, cap_b), kt.any_hit_node(o, l, c, cap_l)
         occ = occ | o2

@@ -1,16 +1,21 @@
-"""Traversal tables and kernels K1-K3, K6a, K6b and K8, with their plain
-PyTorch versions.
+"""Traversal tables and kernels K1-K3, K6a, K6b, K7 and K8, with their
+plain PyTorch versions.
 
-Replaces `nebulae_tpu/kernels/pallas_trace.py` (pack_bvh_fat4,
-pack_bvh_for_pallas, _grouped_tris, the fat4 closest / combo / any kernels
-with their slot_range and paged builds, and the one-node closest / any
-kernels).  The tables hold the same values as the JAX packers, in a
-row-major layout one GPU thread can load:
+Replaces `nebulae_tpu/kernels/pallas_trace.py` (pack_bvh_fat4, pack_bvh_fat,
+pack_bvh_for_pallas, _grouped_tris, grouped_tri_ids, the fat4 closest /
+combo / any kernels with their slot_range and paged builds, the fat2
+closest / combo / any kernels, and the one-node closest / any kernels).
+The tables hold the same values as the JAX packers, in a row-major layout
+one GPU thread can load:
 
   fat4nodes [n_nodes, 32] f32: slot k box at [6k, 6k+6) (lo.xyz, hi.xyz);
       [24 + k] the slot's enc as int32 bits: leaf -> first_slot*32 + count
       (1..15), inner -> fat4_id*32 + 16, empty -> 0; [28] the order meta
       om_self*36 + om_left*6 + om_right as int32 bits; [29:32] zero.
+  fatnodes [n_inner, 16] f32 (fat2, K7): the left child's box at [0, 6),
+      the right child's at [6, 12); [12], [13] the children's enc as int32
+      bits (leaf -> first_slot*32 + count, inner -> inner_id*32 + 16);
+      [14] the order meta axis*2 + left_is_lower as int32 bits; [15] zero.
   nodes [n_nodes, 8] f32 (one-node layout, K8): lo.xyz, hi.xyz, enc as
       int32 bits (leaf -> first_slot*32 + count, inner -> right*32 + 16 +
       axis*2 + left_is_lower; the left child is the next row), zero.
@@ -21,7 +26,7 @@ Each wrapper launches its CUDA kernel (csrc/trace.cu) for CUDA tensors,
 adds one to its own `launches` count, and runs the plain version for CPU
 tensors; it raises on anything else.  K6a (`*_paged`) launches K1-K3 over
 the one table in device memory and counts apart; K6b (`*_slots`) is K1-K3
-with a leaf slot gate.  The plain versions walk the same tree in the same
+with a leaf slot gate; K7 (`*_fat`) walks the fat2 tables.  The plain versions walk the same tree in the same
 per-ray order with the same float32 arithmetic (one rounding per multiply
 and add), so on one device kernel and plain version agree bit for bit in
 tri and occ.
@@ -38,6 +43,7 @@ from nebulae_tpu_torch.kernels.build import check, native
 
 TRI_STRIDE = 10
 NODE_STRIDE = 32
+FAT_STRIDE = 16
 ONE_NODE_STRIDE = 8
 META_SHIFT = 5
 MAX_LEAF_FIELD = 15
@@ -52,13 +58,9 @@ STACK_MAX = 128  # csrc/trace.cu kStackMax
 # ---------------------------------------------------------------------------
 
 
-def grouped_tris(bvh, tri_pos: np.ndarray, tri_group: int):
-    """Each leaf's triangle range in ceil(c/G) slots of G triangles.
-
-    Returns (tris [n_slots, G, 10] f32, slot_first [n], slot_count [n]) with
-    slot_first/slot_count per node (0 for inner nodes)."""
-    G = int(tri_group)
-    n = bvh.node_lo.shape[0]
+def _slot_layout(bvh, G: int):
+    """Leaves in node order, each holding ceil(count / G) consecutive slots
+    of G triangles: (leaf nodes, their counts, slot counts, first slots)."""
     counts = np.asarray(bvh.node_count, np.int64)
     leaf_nodes = np.nonzero(counts > 0)[0]
     c = counts[leaf_nodes]
@@ -66,29 +68,69 @@ def grouped_tris(bvh, tri_pos: np.ndarray, tri_group: int):
     sf = np.zeros_like(sc)
     if sc.size:
         sf[1:] = np.cumsum(sc)[:-1]
-    ns = int(sc.sum())
+    return leaf_nodes, c, sc, sf
+
+
+def grouped_tris(bvh, tri_pos: np.ndarray, tri_group: int):
+    """Each leaf's triangle range in ceil(c/G) slots of G triangles.
+
+    Returns (tris [n_slots, G, 10] f32, slot_first [n], slot_count [n]) with
+    slot_first/slot_count per node (0 for inner nodes)."""
+    G = int(tri_group)
+    n = bvh.node_lo.shape[0]
+    leaf_nodes, _, sc, sf = _slot_layout(bvh, G)
     slot_first = np.zeros(n, np.int64)
     slot_count = np.zeros(n, np.int64)
     slot_first[leaf_nodes] = sf
     slot_count[leaf_nodes] = sc
     if slot_count.max(initial=0) > MAX_LEAF_FIELD:
         raise ValueError("leaf slots exceed the 15-slot encoding: raise bvh_tri_group or lower max_leaf")
-    tris = np.zeros((max(ns, 1), G, TRI_STRIDE), np.float32)
+    ids = grouped_tri_ids(bvh, G)
+    tris = np.zeros(ids.shape + (TRI_STRIDE,), np.float32)
+    if sc.sum():
+        tp = tri_pos[ids]
+        tris[..., 0:3] = tp[..., 0, :]
+        tris[..., 3:6] = tp[..., 1, :] - tp[..., 0, :]
+        tris[..., 6:9] = tp[..., 2, :] - tp[..., 0, :]
+        tris[..., 9] = ids.astype(np.int32).view(np.float32)
+    return tris, slot_first, slot_count
+
+
+def grouped_tri_ids(bvh, tri_group: int) -> np.ndarray:
+    """The slot -> triangle map of grouped_tris' table: [n_slots, G] original
+    triangle ids (int64; a leaf's last slot repeats its last triangle; -1
+    marks the empty row of a scene without triangles).  The topology part of
+    the table, which a refit keeps while it rewrites the vertices
+    (bvh/refit.py::repack_tris)."""
+    G = int(tri_group)
+    leaf_nodes, c, sc, sf = _slot_layout(bvh, G)
+    ns = int(sc.sum())
+    ids = np.full((max(ns, 1), G), -1, np.int64)
     if ns:
-        tperm = tri_pos[bvh.tri_index]
-        tid = np.asarray(bvh.tri_index, np.int32)
+        tri_index = np.asarray(bvh.tri_index, np.int64)
         leaf_of_slot = np.repeat(np.arange(leaf_nodes.shape[0]), sc)
         slot_in_leaf = np.arange(ns) - sf[leaf_of_slot]
         base = np.asarray(bvh.node_first, np.int64)[leaf_nodes]
         for g in range(G):
             off = np.minimum(slot_in_leaf * G + g, c[leaf_of_slot] - 1)
-            sel = base[leaf_of_slot] + off
-            tp = tperm[sel]
-            tris[:ns, g, 0:3] = tp[:, 0]
-            tris[:ns, g, 3:6] = tp[:, 1] - tp[:, 0]
-            tris[:ns, g, 6:9] = tp[:, 2] - tp[:, 0]
-            tris[:ns, g, 9] = tid[sel].view(np.float32)
-    return tris, slot_first, slot_count
+            ids[:ns, g] = tri_index[base[leaf_of_slot] + off]
+    return ids
+
+
+def _tree_stack_depth(bvh) -> int:
+    """Tree levels + 1: the deepest stack a walk that pushes at most both
+    children of each visited node can need."""
+    is_leaf = np.asarray(bvh.node_count) > 0
+    node_right = np.asarray(bvh.node_right, np.int64)
+    n = is_leaf.shape[0]
+    level = np.ones(n, np.int64)
+    for i in range(n):  # children follow their parent in pre-order
+        if not is_leaf[i]:
+            level[i + 1] = level[node_right[i]] = level[i] + 1
+    stack_depth = int(level.max(initial=0)) + 1
+    if stack_depth > STACK_MAX:
+        raise ValueError(f"BVH needs a {stack_depth}-entry stack; the kernels hold {STACK_MAX}")
+    return stack_depth
 
 
 def pack_bvh_fat4(bvh, tri_pos: np.ndarray, tri_group: int = 8) -> dict | None:
@@ -100,7 +142,9 @@ def pack_bvh_fat4(bvh, tri_pos: np.ndarray, tri_group: int = 8) -> dict | None:
     are the children of i's left child (or [left child, empty] when it is a
     leaf), slots 2, 3 likewise for the right child.  Rows are numbered in
     breadth-first order from the root.  Also returns `stack_depth`, the
-    deepest traversal stack the tree can need (3 per fat4 level + 1)."""
+    deepest traversal stack the tree can need (3 per fat4 level + 1), and
+    `fat4_slots` [n_nodes, 4] int32, the BVH node in each slot (-1 empty),
+    which a refit rewrites the boxes from (bvh/refit.py)."""
     n = int(bvh.node_lo.shape[0])
     is_leaf = np.asarray(bvh.node_count) > 0
     if n == 0 or is_leaf[0]:
@@ -160,7 +204,45 @@ def pack_bvh_fat4(bvh, tri_pos: np.ndarray, tri_group: int = 8) -> dict | None:
     stack_depth = 3 * max(level) + 1
     if stack_depth > STACK_MAX:
         raise ValueError(f"fat4 tree needs a {stack_depth}-entry stack; the kernels hold {STACK_MAX}")
-    return {"fat4nodes": nodes, "tris": tris, "stack_depth": stack_depth}
+    return {"fat4nodes": nodes, "tris": tris, "stack_depth": stack_depth,
+            "fat4_slots": np.asarray(slots_all, np.int32).reshape(ni, 4)}
+
+
+def pack_bvh_fat(bvh, tri_pos: np.ndarray, tri_group: int = 8) -> dict | None:
+    """FlatBVH + world triangles -> fat2 tables (numpy) for K7, the
+    counterpart of pack_bvh_fat: one row per inner node, in pre-order,
+    holding both children's boxes, or None when the root is a leaf.  Also
+    returns `stack_depth` (tree levels + 1) and `inner_idx`, the BVH node
+    of each row, which a refit rewrites the boxes from."""
+    n = int(bvh.node_lo.shape[0])
+    is_leaf = np.asarray(bvh.node_count) > 0
+    if n == 0 or is_leaf[0]:
+        return None
+    tris, slot_first, slot_count = grouped_tris(bvh, tri_pos, tri_group)
+    node_lo = np.asarray(bvh.node_lo, np.float32)
+    node_hi = np.asarray(bvh.node_hi, np.float32)
+    inner_idx = np.nonzero(~is_leaf)[0]
+    ni = inner_idx.shape[0]
+    inner_id = np.full(n, -1, np.int64)
+    inner_id[inner_idx] = np.arange(ni)
+    enc = np.where(is_leaf, slot_first * (1 << META_SHIFT) + slot_count,
+                   inner_id * (1 << META_SHIFT) + INNER_FIELD)
+    left = inner_idx + 1
+    right = np.asarray(bvh.node_right, np.int64)[inner_idx]
+    # Split axis and side from the children's box centres, as JAX derives them.
+    c_l = (node_lo[left] + node_hi[left]) * 0.5
+    c_r = (node_lo[right] + node_hi[right]) * 0.5
+    axis = np.argmax(np.abs(c_r - c_l), axis=-1)
+    lower = (c_l[np.arange(ni), axis] <= c_r[np.arange(ni), axis]).astype(np.int64)
+    nodes = np.zeros((ni, FAT_STRIDE), np.float32)
+    nodes[:, 0:3] = node_lo[left]
+    nodes[:, 3:6] = node_hi[left]
+    nodes[:, 6:9] = node_lo[right]
+    nodes[:, 9:12] = node_hi[right]
+    meta = np.stack([enc[left], enc[right], axis * 2 + lower], axis=1).astype(np.int32)
+    nodes[:, 12:15] = meta.view(np.float32)
+    return {"fatnodes": nodes, "tris": tris, "stack_depth": _tree_stack_depth(bvh),
+            "inner_idx": inner_idx}
 
 
 def pack_bvh_nodes(bvh, tri_pos: np.ndarray, tri_group: int = 8) -> dict:
@@ -188,14 +270,7 @@ def pack_bvh_nodes(bvh, tri_pos: np.ndarray, tri_group: int = 8) -> dict:
     nodes[:, 0:3] = node_lo
     nodes[:, 3:6] = node_hi
     nodes[:, 6] = enc.view(np.float32)
-    level = np.ones(n, np.int64)
-    for i in range(n):  # children follow their parent in pre-order
-        if not is_leaf[i]:
-            level[i + 1] = level[node_right[i]] = level[i] + 1
-    stack_depth = int(level.max(initial=0)) + 1
-    if stack_depth > STACK_MAX:
-        raise ValueError(f"BVH needs a {stack_depth}-entry stack; the kernels hold {STACK_MAX}")
-    return {"nodes": nodes, "tris": tris, "stack_depth": stack_depth}
+    return {"nodes": nodes, "tris": tris, "stack_depth": _tree_stack_depth(bvh)}
 
 
 def empty_tables() -> dict:
@@ -215,7 +290,7 @@ def tables_to(packed: dict, device) -> dict:
     view tris[lo:hi] of the triangle table, with its slot range."""
     out = {}
     for k, v in packed.items():
-        if k in ("fat4nodes", "nodes", "tris"):
+        if k in ("fat4nodes", "fatnodes", "nodes", "tris"):
             out[k] = torch.as_tensor(v).to(device).contiguous()
         elif k == "chunks":
             out[k] = [tables_to(c, device) for c in v]
@@ -516,6 +591,130 @@ def shadow_closest_fat4_plain(o, b, l, tables: dict, t_max_b=float("inf"), t_max
     return {"t": _miss_t(btri, bt), "tri": btri, "u": bu, "v": bv}, occ
 
 
+def _decode_fat(rows):
+    enc = rows[:, 12:15].contiguous().view(torch.int32).long()
+    return enc[:, :2] & 31, enc[:, :2] >> META_SHIFT, enc[:, 2]
+
+
+def _slab2(rows, inv, oi, cap):
+    """Slab test of the 2 child boxes of fat2 rows [M, 16] -> [M, 2] bool."""
+    return _slab(rows[:, :12].reshape(-1, 2, 6), inv, oi, cap)
+
+
+def _push_far_near(walk, ids, meta, ok, om, pos):
+    """Push the hit inner children far first, near on top (K7a/K7b order)."""
+    near = torch.where(_near_first(om, pos), 0, 1)[:, None]
+    for k in (1 - near, near):
+        walk.push(ids, torch.gather(meta, 1, k)[:, 0], torch.gather(ok, 1, k)[:, 0])
+
+
+def closest_hit_fat_plain(o, d, tables: dict, t_max=float("inf"), work=None):
+    """Plain version of K7a over fat2 tables: dict(t, tri, u, v).  Both
+    children are slab-tested against the cap the visit starts with; the left
+    leaf child's triangles are intersected, then the right one's, each test
+    under the running best t."""
+    n = o.shape[0]
+    nodes, tris = tables["fatnodes"], tables["tris"]
+    bt = _as_cap(t_max, n, o)
+    btri = torch.full((n,), -1, dtype=torch.int32, device=o.device)
+    bu = torch.zeros(n, dtype=torch.float32, device=o.device)
+    bv = torch.zeros_like(bu)
+    live = ~_dead(o, d) & (bt > EPS) & (nodes.shape[0] > 0)
+    walk = _Walk(n, tables["stack_depth"], live, o.device)
+    rays = _Rays(o, d)
+    while True:
+        ids = walk.active()
+        if ids.numel() == 0:
+            break
+        rows = nodes[walk.pop(ids)]
+        box = _slab2(rows, rays.inv[ids], rays.oi[ids], bt[ids])
+        _count(work, ids.numel(), 2 * ids.numel())
+        field, meta, om = _decode_fat(rows)
+        for k in range(2):
+            for sel, slot in _leaf_slots(field[:, k], meta[:, k], box[:, k]):
+                r = ids[sel]
+                _count(work, tri_tests=sel.numel() * tris.shape[1])
+                bt[r], btri[r], bu[r], bv[r] = _closest_step(
+                    tris[slot], o[r], d[r], bt[r], btri[r], bu[r], bv[r]
+                )
+        _push_far_near(walk, ids, meta, box & (field >= INNER_FIELD), om, rays.pos[ids])
+    return {"t": _miss_t(btri, bt), "tri": btri, "u": bu, "v": bv}
+
+
+def any_hit_fat_plain(o, d, tables: dict, t_max=float("inf"), work=None):
+    """Plain version of K7c: occluded [N] bool.  Hit inner children are
+    pushed left, then right (right on top), as JAX's any-hit walk does."""
+    n = o.shape[0]
+    nodes, tris = tables["fatnodes"], tables["tris"]
+    cap = _as_cap(t_max, n, o)
+    occ = torch.zeros(n, dtype=torch.bool, device=o.device)
+    live = ~_dead(o, d) & (cap > EPS) & (nodes.shape[0] > 0)
+    walk = _Walk(n, tables["stack_depth"], live, o.device)
+    rays = _Rays(o, d)
+    while True:
+        ids = walk.active()
+        if ids.numel() == 0:
+            break
+        rows = nodes[walk.pop(ids)]
+        box = _slab2(rows, rays.inv[ids], rays.oi[ids], cap[ids])
+        _count(work, ids.numel(), 2 * ids.numel())
+        field, meta, _ = _decode_fat(rows)
+        for k in range(2):
+            for sel, slot in _leaf_slots(field[:, k], meta[:, k], box[:, k]):
+                r = ids[sel]
+                _count(work, tri_tests=sel.numel() * tris.shape[1])
+                valid, t, _, _ = _moller(tris[slot], o[r], d[r])
+                occ[r] |= (valid & (t < cap[r][:, None])).any(dim=1)
+        ok = box & (field >= INNER_FIELD) & ~occ[ids][:, None]
+        for k in range(2):
+            walk.push(ids, meta[:, k], ok[:, k])
+        walk.sp[occ] = 0
+    return occ
+
+
+def shadow_closest_fat_plain(o, b, l, tables: dict, t_max_b=float("inf"), t_max_l=float("inf"),
+                             work=None):
+    """Plain version of K7b: (hit dict along b, occluded [N] along l).  A
+    child is entered when either ray's box is hit; near order follows b."""
+    n = o.shape[0]
+    nodes, tris = tables["fatnodes"], tables["tris"]
+    bt = _as_cap(t_max_b, n, o)
+    cap_l = _as_cap(t_max_l, n, o)
+    btri = torch.full((n,), -1, dtype=torch.int32, device=o.device)
+    bu = torch.zeros(n, dtype=torch.float32, device=o.device)
+    bv = torch.zeros_like(bu)
+    occ = torch.zeros(n, dtype=torch.bool, device=o.device)
+    has_nodes = nodes.shape[0] > 0
+    live_b = ~_dead(o, b) & (bt > EPS) & has_nodes
+    live_l = ~_dead(o, l) & (cap_l > EPS) & has_nodes
+    walk = _Walk(n, tables["stack_depth"], live_b | live_l, o.device)
+    rb, rl = _Rays(o, b), _Rays(o, l)
+    while True:
+        ids = walk.active()
+        if ids.numel() == 0:
+            break
+        rows = nodes[walk.pop(ids)]
+        gate_b, gate_l = live_b[ids], live_l[ids] & ~occ[ids]
+        box_b = _slab2(rows, rb.inv[ids], rb.oi[ids], bt[ids]) & gate_b[:, None]
+        box_l = _slab2(rows, rl.inv[ids], rl.oi[ids], cap_l[ids]) & gate_l[:, None]
+        _count(work, ids.numel(), 2 * (int(gate_b.sum()) + int(gate_l.sum())))
+        field, meta, om = _decode_fat(rows)
+        for k in range(2):
+            tested = box_b[:, k] | box_l[:, k]
+            for sel, slot in _leaf_slots(field[:, k], meta[:, k], tested):
+                r = ids[sel]
+                gates = int(box_b[sel, k].sum()) + int(box_l[sel, k].sum())
+                _count(work, tri_tests=gates * tris.shape[1])
+                tv = tris[slot]
+                bt[r], btri[r], bu[r], bv[r] = _closest_step(
+                    tv, o[r], b[r], bt[r], btri[r], bu[r], bv[r], gate=box_b[sel, k]
+                )
+                valid, t, _, _ = _moller(tv, o[r], l[r])
+                occ[r] |= (valid & (t < cap_l[r][:, None])).any(dim=1) & box_l[sel, k]
+        _push_far_near(walk, ids, meta, (box_b | box_l) & (field >= INNER_FIELD), om, rb.pos[ids])
+    return {"t": _miss_t(btri, bt), "tri": btri, "u": bu, "v": bv}, occ
+
+
 def _decode_node(rows):
     enc = rows[:, 6].contiguous().view(torch.int32).long()
     return enc & 31, enc >> META_SHIFT
@@ -605,7 +804,7 @@ def _check_tables(tables, dev, nodes_key="fat4nodes"):
         t = tables[k]
         if t.dtype != torch.float32 or t.device != dev or not t.is_contiguous():
             raise ValueError(f"table {k} must be a contiguous float32 tensor on {dev}")
-    stride = NODE_STRIDE if nodes_key == "fat4nodes" else ONE_NODE_STRIDE
+    stride = {"fat4nodes": NODE_STRIDE, "fatnodes": FAT_STRIDE, "nodes": ONE_NODE_STRIDE}[nodes_key]
     if tables[nodes_key].dim() != 2 or tables[nodes_key].shape[1] != stride:
         raise ValueError(f"{nodes_key} must be [n_nodes, {stride}]")
     if tables["tris"].dim() != 3 or tables["tris"].shape[2] != TRI_STRIDE:
@@ -701,13 +900,13 @@ def _any(entry, counter, plain, o, d, tables, t_max, nodes_key="fat4nodes", gate
     return occ
 
 
-def _combo(entry, counter, plain, o, b, l, tables, t_max_b, t_max_l, gate=()):
+def _combo(entry, counter, plain, o, b, l, tables, t_max_b, t_max_l, nodes_key="fat4nodes", gate=()):
     """As _closest, for the fused shadow+bounce kernel -> (hit, occluded)."""
     n, dev = _check_rays(o, b, l)
-    _check_tables(tables, dev)
+    _check_tables(tables, dev, nodes_key)
     if not _use_kernel(dev):
         return plain()
-    if n == 0 or tables["fat4nodes"].shape[0] == 0:
+    if n == 0 or tables[nodes_key].shape[0] == 0:
         return _misses(n, dev), torch.zeros(n, dtype=torch.bool, device=dev)
     o, b, l = o.contiguous(), b.contiguous(), l.contiguous()
     cap_b, sb = _cap_arg(t_max_b, n, dev)
@@ -715,7 +914,7 @@ def _combo(entry, counter, plain, o, b, l, tables, t_max_b, t_max_l, gate=()):
     hit = _hit_out(n, dev)
     occ = torch.empty(n, dtype=torch.bool, device=dev)
     check(getattr(native().lib, entry)(
-        _ptr(o), _ptr(b), _ptr(l), _ptr(cap_b), sb, _ptr(cap_l), sl, _ptr(tables["fat4nodes"]),
+        _ptr(o), _ptr(b), _ptr(l), _ptr(cap_b), sb, _ptr(cap_l), sl, _ptr(tables[nodes_key]),
         _ptr(tables["tris"]), int(tables["tris"].shape[1]), n, *gate, _ptr(hit["t"]),
         _ptr(hit["tri"]), _ptr(hit["u"]), _ptr(hit["v"]), _ptr(occ), _stream(),
     ), entry)
@@ -800,6 +999,31 @@ def shadow_closest_fat4_slots(o, b, l, chunk: dict, t_max_b=float("inf"), t_max_
                   o, b, l, chunk, t_max_b, t_max_l, gate=sr)
 
 
+# K7: fat2 walks over pack_bvh_fat's tables (bvh_wide=2).
+
+
+def closest_hit_fat(o, d, tables: dict, t_max=float("inf")):
+    """K7a: closest hit over fat2 tables -> dict(t, tri, u, v)."""
+    return _closest("nb_closest_fat", closest_hit_fat,
+                    lambda: closest_hit_fat_plain(o, d, tables, t_max), o, d, tables, t_max,
+                    nodes_key="fatnodes")
+
+
+def any_hit_fat(o, d, tables: dict, t_max=float("inf")):
+    """K7c: occlusion within t_max over fat2 tables -> occluded [N] bool."""
+    return _any("nb_any_fat", any_hit_fat,
+                lambda: any_hit_fat_plain(o, d, tables, t_max), o, d, tables, t_max,
+                nodes_key="fatnodes")
+
+
+def shadow_closest_fat(o, b, l, tables: dict, t_max_b=float("inf"), t_max_l=float("inf")):
+    """K7b: the fused bounce closest-hit and shadow any-hit walk over fat2
+    tables.  Returns (hit dict, occluded [N])."""
+    return _combo("nb_combo_fat", shadow_closest_fat,
+                  lambda: shadow_closest_fat_plain(o, b, l, tables, t_max_b, t_max_l),
+                  o, b, l, tables, t_max_b, t_max_l, nodes_key="fatnodes")
+
+
 # K8: one node per visit over pack_bvh_nodes' tables.
 
 
@@ -821,6 +1045,7 @@ WRAPPERS = (
     closest_hit_fat4, shadow_closest_fat4, any_hit_fat4,
     closest_hit_fat4_paged, shadow_closest_fat4_paged, any_hit_fat4_paged,
     closest_hit_fat4_slots, shadow_closest_fat4_slots, any_hit_fat4_slots,
+    closest_hit_fat, shadow_closest_fat, any_hit_fat,
     closest_hit_node, any_hit_node,
 )
 for _fn in WRAPPERS:

@@ -4,10 +4,10 @@ Counterpart of `nebulae_tpu/tracer/trace.py`.  `make_tracer` keeps the
 `(closest, any)` contract: `closest(o, d, t_max)` -> dict(t, tri, u, v),
 `any(o, d, t_max)` -> occluded [N], and `closest.combo(o, b, l, t_max_b,
 t_max_l)` -> (hit, occluded) for the fused shadow+bounce walk.  The tables'
-route picks the kernels: K1-K3 over one table, K6a on the paged route,
-chained K6b walks over triangle chunks, chained K1-K3 / K8 walks over
-subtree chunks, or K8 over one-node tables (whose combo is K8 closest then
-K8 any).
+route picks the kernels: K1-K3 over one fat4 table, K7 over one fat2 table
+(bvh_wide=2), K6a on the paged route, chained K6b walks over triangle
+chunks, chained K1-K3 / K7 / K8 walks over subtree chunks, or K8 over
+one-node tables (whose combo is K8 closest then K8 any).
 """
 
 from __future__ import annotations
@@ -129,6 +129,8 @@ def make_tracer(scene: dict, tables: dict | None, cfg, device=None):
 
         def combo(o, b, l, tabs, t_max_b, t_max_l):
             return kt.closest_hit_node(o, b, tabs, t_max_b), kt.any_hit_node(o, l, tabs, t_max_l)
+    elif "fatnodes" in tables:
+        closest, any_hit, combo = kt.closest_hit_fat, kt.any_hit_fat, kt.shadow_closest_fat
     elif tables.get("paged", False):
         closest, any_hit, combo = kt.closest_hit_fat4_paged, kt.any_hit_fat4_paged, kt.shadow_closest_fat4_paged
     else:

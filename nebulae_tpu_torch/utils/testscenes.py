@@ -153,12 +153,18 @@ def _append_flat_tris(fs: FlatScene, tris: np.ndarray, normal, albedo, rough: fl
     fs.mat_avg_emissive = np.concatenate([fs.mat_avg_emissive, [[0.0, 0.0, 0.0]]]).astype(np.float32)
     fs.aabb_min = np.minimum(fs.aabb_min, tris.reshape(-1, 3).min(0).astype(np.float32))
     fs.aabb_max = np.maximum(fs.aabb_max, tris.reshape(-1, 3).max(0).astype(np.float32))
+    if fs.instance_of_tri is not None:
+        # Appended static geometry becomes its own instance.
+        fs.instance_of_tri = np.concatenate(
+            [fs.instance_of_tri, np.full(t, fs.instance_of_tri.max() + 1, np.int32)])
 
 
 def torus_field(seed: int, nx: int, nz: int, nu: int, nv: int, n_materials: int,
                 map_size: int, spacing: float = 3.0) -> FlatScene:
     """nx*nz textured, normal-mapped bumpy tori (2*nu*nv triangles each)
-    over a subdivided ground plane with its own untextured material."""
+    over a subdivided ground plane with its own untextured material.  Each
+    torus is one instance and the plane another (`instance_of_tri`), for
+    Renderer.update_instances."""
     rng = np.random.default_rng(seed)
     images = []
     atlas = np.zeros((n_materials, map_size, map_size, 12), np.uint8)
@@ -224,6 +230,7 @@ def torus_field(seed: int, nx: int, nz: int, nu: int, nv: int, n_materials: int,
         mat_atlas_id=np.arange(n_materials, dtype=np.int32),
         aabb_min=tri_pos.reshape(-1, 3).min(0).astype(np.float32),
         aabb_max=tri_pos.reshape(-1, 3).max(0).astype(np.float32),
+        instance_of_tri=np.repeat(np.arange(len(parts), dtype=np.int32), [p[0].shape[0] for p in parts]),
     )
     plane = _ground_plane(fs.aabb_min, fs.aabb_max, float(fs.aabb_min[1]) - 0.2)
     _append_flat_tris(fs, plane, [0, 1, 0], [0.6, 0.6, 0.6])

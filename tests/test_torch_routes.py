@@ -157,11 +157,18 @@ def test_route_keys_match_jax_renderer(route_scene, monkeypatch, size, mode, wid
     jr = JRenderer(JFlatScene(**fs.field_arrays()), JCfg(**kw))
     pr = Renderer(fs, RenderConfig(**kw), device="cpu")
     jkeys = set(jr.bvh) & ROUTE_KEYS
-    if "fatnodes" in jkeys:  # bvh_wide=2: the port packs fat4 until K7 lands
-        jkeys = (jkeys - {"fatnodes"}) | {"fat4nodes"}
     assert set(pr.tables) & ROUTE_KEYS == jkeys
-    if wide == 4:
-        assert pr.route == expect[mode]
+    if "chunks" in jkeys:
+        # Chunk tables of the scene's width (one-node on a single leaf).
+        # JAX's pack_bvh_chunks binds its chunk size at definition, so the
+        # shrunk limit cuts only the port's: the layouts compare, not the count.
+        fat = {"fat4nodes" if wide == 4 else "fatnodes", "tris"}
+        assert {k for c in jr.bvh["chunks"] for k in c} & ROUTE_KEYS - {"nodes"} == fat
+        assert all(set(c) & ROUTE_KEYS in (fat, {"nodes", "tris"}) for c in pr.tables["chunks"])
+        assert any(set(c) >= fat for c in pr.tables["chunks"])
+    # JAX gates bytes, pages and cuts triangle chunks for fat4 only: a fat2
+    # scene past the triangle gate takes subtree chunks.
+    assert pr.route == (expect[mode] if wide == 4 else "subtree")
     # JAX's make_tracer (tracer/trace.py:266-308): chunk keys first, then
     # the paging rule over one fat4 table.
     jax_paged = not ({"tri_chunks", "chunks"} & jkeys) and "fat4nodes" in jr.bvh and (
