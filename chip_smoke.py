@@ -8,8 +8,13 @@ Phases (any failure raises and exits non-zero):
   2. build    nvcc-build the kernels and the native BVH builder
   3. scene    the ~139k-triangle procedural bench scene, BVH, fat4 tables
   4. kernels  K1-K5 against their plain PyTorch versions at main-path shapes
-              (1080p primary rays, 2^21 bounce/shadow rays, 1080p a-trous
-              forward and backward, with K5's adjoint identity against K4)
+              (1080p primary rays, 2^21 bounce/shadow rays, K2 on each of
+              its launches in a 1080p frame, 1080p a-trous forward and
+              backward, with K5's adjoint identity against K4); the fused
+              walk K2 and its slot-gated build (over the bench scene cut
+              into triangle chunks) at 1, 31, 33 and 4,097 rays and one
+              past its group kernel's limit, with zero caps and dead lanes;
+              K5 on a ragged 1917x1079 frame
   5. slice    Renderer.render at 1920x1080, 1 spp, 4 bounces, full shading,
               SVGF, ACES: 3 warm-up and 5 timed frames, with every kernel's
               launch count read around them; then a 64x64 frame on the GPU
@@ -28,7 +33,8 @@ Phases (any failure raises and exits non-zero):
               huge_scene under auto (the paged route, K6a): its kernels
               against their plain versions at full shape, 1 warm-up and 3
               timed frames, one profiled frame, and 1 warm-up and 3 timed
-              train steps.  A 12-triangle box with tracer="pallas" (the
+              train steps; its fused walk at the stress shapes of phase 4.
+              A 12-triangle box with tracer="pallas" (the
               BVH root is a leaf): a 1080p frame through K8, held against
               the brute-force frame
   8. fat2     bvh_wide=2 and dynamic scenes.  The bench scene's fat2 table:
@@ -44,12 +50,32 @@ Phases (any failure raises and exits non-zero):
               and one profiled call, 1 + 3 frames held against a rebuild
               on the moved triangles, and a profile of each
   9. summary  one {"kernels": [...]} line, then the device line last
-Each phase logs its seconds.  Imports nothing of JAX or of the JAX package.
+Each phase logs its seconds; each profile lists every launch of a port
+kernel with its grid, block, registers and time.  Imports nothing of JAX or
+of the JAX package.
+
+    python3 chip_smoke.py --ab TREE_A TREE_B [--rounds 1] [--runs 21]
+
+compares source trees in one session on one GPU instead.  A TREE is a
+directory that holds a `nebulae_tpu_torch/` package: this checkout, or an
+unpacked `git archive` of another commit.  One process of this checkout
+saves K2's launches in one bench-scene frame at each of AB_SIZES, taken
+through the wrapper's record hook.  Then each tree runs in turn, A B B A
+per round, in a fresh process that builds its kernels, makes phase 4's
+inputs as phase 4 does, and times K2 at phase 4's shape and on each saved
+launch, K5 at steps 1, 2, 4 and 8, K1 and K4.  Where the tree's K2 has a
+group kernel, each frame launch is also timed with the other body: split
+into launches the group kernel takes, or padded with dead rays past them;
+the results must equal the launch's own.  Prints the card's name and power
+limit, one JSON line per process, each tree's medians and output digests,
+and which kernels' SASS (`cuobjdump -sass`) equals the first tree's.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -66,9 +92,10 @@ F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 # per-ray setup; and per a-trous tap, plus the per-pixel a-trous setup.
 OPS_BOX, OPS_TRI, OPS_RAY = 25, 54, 12
 OPS_TAP, OPS_PIXEL = 30, 12
-# K5's f32 operations per tap (weights as K4, vscale and g at the tap, the
-# divisions) and per pixel, counted from csrc/atrous.cu.
-OPS_TAP_BWD, OPS_PIXEL_BWD = 47, 6
+# K5's f32 operations per tap (the weights as K4, with the luminance stop's
+# division) and per pixel (g, luminance, clamped depth and vscale, formed
+# once per pixel), counted from csrc/atrous.cu.
+OPS_TAP_BWD, OPS_PIXEL_BWD = 30, 14
 
 
 def log(msg: str) -> None:
@@ -178,6 +205,16 @@ def profile_frame(render, kernel_names, frame_ms: float, phases=PHASES, what: st
     log("profile: device ms by phase " + json.dumps({k: round(v, 3) for k, v in phase_ms.items()}))
     log(f"profile: port kernels {json.dumps({k: round(v, 3) for k, v in ours.items()})} ms "
         f"= {sum(ours.values()) / busy:.3f} of busy")
+    # Each launch of a port kernel in launch order: its grid x block (the
+    # lanes it was given, rounded up to a block), its registers, shared
+    # memory and the profiler's occupancy estimate, and its time.
+    for e in sorted((e for e in dev if any(n in e["name"] for n in kernel_names)), key=lambda e: e["ts"]):
+        a = e.get("args", {})
+        name = re.search(r"\w+_kernel", e["name"]).group(0) + ("<SlotRange>" if "SlotRange" in e["name"] else "")
+        log(f"profile:   launch {name} grid {a.get('grid')} x block {a.get('block')}, "
+            f"{a.get('registers per thread')} registers, {a.get('shared memory')} B shared, "
+            f"{a.get('warps per SM')} warps per SM, est. occupancy {a.get('est. achieved occupancy %')}%: "
+            f"{e['dur'] / 1e3:.4f} ms")
     for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"profile:   {ms:8.3f} ms  x{count:<4d} {name[:110]}")
 
@@ -352,6 +389,46 @@ def hold_combo(held, what, kernel, plain, o, b, l, tables, cap_b=float("inf"), c
     return hk, occ_k
 
 
+def stress_combo(tag, kernel, plain, ro, rb, rl) -> None:
+    """A fused walk against its plain version at 1, 31, 33 and 4,097 rays (a
+    partial warp, a warp and a lane, a partial block of the group kernel)
+    and at one ray more than the group kernel takes (a partial block of the
+    thread-per-ray kernel).  The rays are spread over the sorted batch, with
+    per-ray caps of which some are 0 (as sorted_shadow_closest gives lanes
+    that do not bounce or shoot), dead origins and zero directions.  tri
+    and occ equal, t/u/v within rtol 1e-6."""
+    import torch
+
+    from nebulae_tpu_torch.kernels.trace import combo_group_rays
+    from nebulae_tpu_torch.tracer.sorting import DEAD_ORIGIN
+
+    sizes = (1, 31, 33, 4097, combo_group_rays() + 1)
+    for n in sizes:
+        pick = torch.linspace(0, ro.shape[0] - 1, n, device=ro.device).long()
+        o, b, l = ro[pick].clone(), rb[pick].clone(), rl[pick].clone()
+        i = torch.arange(n, device=o.device)
+        cap_b = torch.where(i % 3 == 1, 0.0, float("inf"))
+        cap_l = torch.where(i % 4 == 2, 0.0, float("inf"))
+        o[i % 7 == 3] = DEAD_ORIGIN
+        b[i % 11 == 5] = 0.0
+        hk, occ_k = kernel(o, b, l, cap_b, cap_l)
+        hp, occ_p = plain(o, b, l, cap_b, cap_l, {})
+        _hit_err(hk, hp, f"{tag} at {n} rays")
+        assert torch.equal(occ_k, occ_p), f"{tag} at {n} rays: occ differs from its plain version"
+    log(f"{tag} stress: {sizes} rays with zero caps and dead lanes equal their plain version")
+
+
+def recorded_launches(wrapper, render) -> list:
+    """The inputs (o, b, l, cap_b, cap_l) of each launch of a fused-walk
+    wrapper in one render(), through the wrapper's record hook."""
+    wrapper.record = []
+    try:
+        render()
+    finally:
+        rec, wrapper.record = wrapper.record, None
+    return rec
+
+
 def _merge_work(into, work):
     for k, v in work.items():
         into[k] = into.get(k, 0) + v
@@ -386,7 +463,7 @@ def _grad_report(opt) -> dict:
     return dict(zip(names, opt.grads))
 
 
-FAT4_KERNELS = ("closest_fat4_kernel", "combo_fat4_kernel", "any_fat4_kernel", "atrous_fwd_kernel")
+FAT4_KERNELS = ("closest_fat4_kernel", "combo_fat4", "any_fat4_kernel", "atrous_fwd_kernel")
 FAT2_KERNELS = ("closest_fat_kernel", "combo_fat_kernel", "any_fat_kernel", "atrous_fwd_kernel")
 
 
@@ -742,7 +819,7 @@ def large_phase(base_cfg) -> tuple[dict, dict]:
         outs[mode] = {k: out[k] for k in ("ldr", "hit")}
         log(f"large frame {mode} ({r.route}): {mean_ms:.2f} ms/frame (frames {[round(t, 2) for t in times]}), "
             f"launches {json.dumps({k: v for k, v in n.items() if v})}")
-        profile_frame(lambda: r.render(cam_obj), ("fat4_kernel", "atrous_fwd_kernel"), mean_ms,
+        profile_frame(lambda: r.render(cam_obj), ("fat4_", "atrous_fwd_kernel"), mean_ms,
                       what=f"{mode} frame")
         if mode == "tri":
             _read_launches(launches, n, ("closest_fat4_slots", "shadow_closest_fat4_slots", "any_fat4_slots"))
@@ -787,6 +864,9 @@ def large_phase(base_cfg) -> tuple[dict, dict]:
         report[name] = h.entry()
         log(f"K6a {name}: kernel {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms "
             f"({h.by}), max err {h.err:.3g}, work {h.work}")
+    stress_combo("K6a", lambda a, b, l_, tb, tl: kt.shadow_closest_fat4_paged(a, b, l_, tab, tb, tl),
+                 lambda a, b, l_, tb, tl, w: kt.shadow_closest_fat4_plain(a, b, l_, tab, tb, tl, work=w),
+                 ro, rb, rl)
     del o, d, ro, rb, rl
     clock.done("huge kernels")
     paged = {"closest_fat4_paged": kt.closest_hit_fat4_paged,
@@ -801,7 +881,7 @@ def large_phase(base_cfg) -> tuple[dict, dict]:
         f"launches {json.dumps({k: v for k, v in n.items() if v})}")
     _read_launches(launches, n, ("closest_fat4_paged", "shadow_closest_fat4_paged", "any_fat4_paged"))
     assert n["closest_hit_fat4"] == n["shadow_closest_fat4"] == n["any_hit_fat4"] == 0, "resident K1-K3 ran"
-    profile_frame(lambda: r2.render(cam_obj2), ("closest_fat4_kernel", "combo_fat4_kernel", "any_fat4_kernel",
+    profile_frame(lambda: r2.render(cam_obj2), ("closest_fat4_kernel", "combo_fat4", "any_fat4_kernel",
                                                "atrous_fwd_kernel"), mean_ms, what="huge frame")
     del out
     train_phase(r2, cam2, base_cfg, paged)
@@ -1065,6 +1145,232 @@ def fat2_phase(base_cfg, fs, bvh) -> tuple[dict, dict]:
     return report, launches
 
 
+def bench_renderer(width=WIDTH, height=HEIGHT):
+    """The ~139k-triangle bench scene's BVH (native builder) and a Renderer
+    of the main path's configuration -> (fs, bvh, cfg, renderer)."""
+    from nebulae_tpu_torch.bvh.cbuilder import build_bvh_native
+    from nebulae_tpu_torch.config import RenderConfig
+    from nebulae_tpu_torch.engine.renderer import Renderer
+    from nebulae_tpu_torch.utils.testscenes import bench_scene
+
+    fs = bench_scene(seed=0)
+    bvh = build_bvh_native(fs.tri_pos, max_leaf=15)
+    cfg = RenderConfig(
+        width=width, height=height, spp=SPP, max_bounces=BOUNCES, enable_svgf=True,
+        enable_tonemap=True, tracer="auto", lean_outputs=True, fast_bounce_shading=False,
+        bucket_scheduling=True,
+    )
+    return fs, bvh, cfg, Renderer(fs, cfg, bvh=bvh)
+
+
+def atrous_inputs(gbuf, gen):
+    """A 1080p frame's guidance buffers with noisy radiance: (rad, var,
+    depth, normal)."""
+    import torch
+
+    dev = gbuf["albedo"].device
+    rad = (gbuf["albedo"] * torch.rand((HEIGHT * WIDTH, 1), device=dev, generator=gen) * 4.0).reshape(
+        HEIGHT, WIDTH, 3)
+    var = torch.rand((HEIGHT, WIDTH), device=dev, generator=gen) * 0.05
+    return rad, var, gbuf["depth"].reshape(HEIGHT, WIDTH), gbuf["normal_s"].reshape(HEIGHT, WIDTH, 3).contiguous()
+
+
+# --ab: the same kernels of several source trees, timed in one session.
+AB_SIZES = ((1920, 1080), (2560, 1440), (3840, 2160))
+
+
+def ab_capture(path: str) -> None:
+    """Save K2's launches in one bench-scene frame at each of AB_SIZES."""
+    import torch
+
+    from nebulae_tpu_torch.kernels import trace as kt
+    from nebulae_tpu_torch.utils.testscenes import bench_camera
+
+    fs, _, _, renderer = bench_renderer()
+    frames = {}
+    for w, h in AB_SIZES:
+        renderer.resize(w, h)
+        frames[f"{w}x{h}"] = recorded_launches(kt.shadow_closest_fat4, lambda: renderer.render(bench_camera(fs)))
+    torch.save(frames, path)
+
+
+def _digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _other_body(k2, most, a, b, l_, tb, tl):
+    """The launch run by the K2 body it does not take: split into launches
+    of at most `most` rays (the group kernel) when it holds more, else
+    padded with dead rays to most + 1 (one thread per ray).  -> (name, fn
+    giving the launch's own rays' results)."""
+    import torch
+
+    n = a.shape[0]
+    if n > most:
+        size = -(-n // -(-n // most))
+        cut = [slice(i, i + size) for i in range(0, n, size)]
+
+        def split():
+            parts = [k2(a[c], b[c], l_[c], tb[c] if torch.is_tensor(tb) and tb.dim() else tb,
+                        tl[c] if torch.is_tensor(tl) and tl.dim() else tl) for c in cut]
+            return ({k: torch.cat([p[0][k] for p in parts]) for k in parts[0][0]},
+                    torch.cat([p[1] for p in parts]))
+        return "group", split
+    pad = most + 1 - n
+    dead = torch.full((pad, 3), 1.0e14, device=a.device)
+    zero = torch.zeros((pad, 3), device=a.device)
+    a2, b2, l2 = torch.cat([a, dead]), torch.cat([b, zero]), torch.cat([l_, zero])
+    tb2, tl2 = (torch.cat([t, torch.zeros(pad, device=a.device)]) if torch.is_tensor(t) and t.dim() else t
+                for t in (tb, tl))
+
+    def padded():
+        hit, occ = k2(a2, b2, l2, tb2, tl2)
+        return {k: v[:n] for k, v in hit.items()}, occ[:n]
+    return "thread", padded
+
+
+def ab_child(tree: str, path: str, runs: int) -> dict:
+    """Build `tree`'s kernels and time them: on phase 4's inputs, made as
+    phase 4 makes them, and on the saved K2 launches."""
+    sys.path.insert(0, tree)
+    import torch
+
+    from nebulae_tpu_torch.kernels import svgf as ksvgf
+    from nebulae_tpu_torch.kernels import trace as kt
+    from nebulae_tpu_torch.kernels.build import native
+    from nebulae_tpu_torch.passes.gbuffer import make_camera_arrays
+    from nebulae_tpu_torch.utils.testscenes import bench_camera
+
+    assert Path(kt.__file__).resolve().is_relative_to(Path(tree).resolve()), kt.__file__
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lib = native()
+    fs, _, cfg, renderer = bench_renderer()
+    tables = renderer.tables
+    cam = make_camera_arrays(bench_camera(fs), WIDTH, HEIGHT, "cuda")
+    (o, d), (ro, rb, rl), gbuf, gen = path_rays(
+        renderer.scene, lambda a, b: kt.closest_hit_fat4(a, b, tables), renderer.sun, cam)
+    rad, var, depth, nrm = atrous_inputs(gbuf, gen)
+    del gbuf
+    res = {"tree": tree, "build_s": lib.build_seconds}
+
+    def k2(a, b, l_, tb=float("inf"), tl=float("inf")):
+        return kt.shadow_closest_fat4(a, b, l_, tables, tb, tl)
+
+    hit, occ = k2(ro, rb, rl)
+    res["k2_digest"] = _digest(hit["t"], hit["tri"], hit["u"], hit["v"], occ)
+    res["k2_phase4_ms"] = timed_ms(lambda: k2(ro, rb, rl), runs)
+    res["k1_ms"] = timed_ms(lambda: kt.closest_hit_fat4(o, d, tables), runs)
+    most = kt.combo_group_rays() if hasattr(kt, "combo_group_rays") else None
+    res["k2_group_rays"] = most
+    res["k2_frames"] = {}
+    for size, launches in torch.load(path).items():
+        rows = []
+        for c in launches:
+            hit, occ = k2(*c)
+            row = {"lanes": c[0].shape[0], "digest": _digest(hit["t"], hit["tri"], hit["u"], hit["v"], occ),
+                   "ms": timed_ms(lambda c=c: k2(*c), runs)}
+            if most:
+                body, fn = _other_body(k2, most, *c)
+                hit2, occ2 = fn()
+                assert all(torch.equal(hit[k], hit2[k]) for k in hit) and torch.equal(occ, occ2), \
+                    f"{size}: K2's {body} body differs on a {row['lanes']}-ray launch"
+                row[f"{body}_ms"] = timed_ms(fn, runs)
+            rows.append(row)
+        res["k2_frames"][size] = rows
+    phi = (cfg.svgf_phi_color, cfg.svgf_phi_normal, cfg.svgf_phi_depth)
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    digests = []
+    for step in (1, 2, 4, 8):
+        _, w_k = ksvgf.atrous_step(rad, var, depth, nrm, step, phi)
+        y = torch.randn((HEIGHT, WIDTH, 3), device="cuda", generator=gen)
+        digests.append(_digest(ksvgf.atrous_step_bwd(y, w_k, rad, var, depth, nrm, step, phi)))
+        res[f"k5_step{step}_ms"] = timed_ms(
+            lambda: ksvgf.atrous_step_bwd(y, w_k, rad, var, depth, nrm, step, phi), runs)
+        res[f"k4_step{step}_ms"] = timed_ms(lambda: ksvgf.atrous_step(rad, var, depth, nrm, step, phi), runs)
+    res["k5_digest"] = hashlib.sha256("".join(digests).encode()).hexdigest()[:16]
+    for k in ("k5", "k4"):
+        res[f"{k}_ms"] = sum(res[f"{k}_step{s}_ms"] for s in (1, 2, 4, 8)) / 4
+    return res
+
+
+_ANON = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}")
+_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
+
+
+def sass(tree: str) -> dict[str, list[str]]:
+    """Each kernel of the tree's newest built library -> its instructions
+    (the anonymous namespace, named from a hash of its file, made one)."""
+    lib = max((Path(tree) / "nebulae_tpu_torch" / "build").glob("libnebulae_torch_*.so"),
+              key=lambda p: p.stat().st_mtime)
+    out = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(lib)],
+                         capture_output=True, text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            name = _ANON.sub("ANON", line.split("Function : ", 1)[1].strip())
+            funcs[name] = []
+        elif name is not None and (m := _INSN.search(line)):
+            funcs[name].append(m.group(1))
+    return funcs
+
+
+def ab_main(argv) -> int:
+    import argparse
+    import tempfile
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --ab")
+    ap.add_argument("trees", nargs="+")
+    ap.add_argument("--rounds", type=int, default=1, help="A B B A rounds")
+    ap.add_argument("--runs", type=int, default=21, help="timed launches per median")
+    args = ap.parse_args(argv)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    log(smi)
+    order = []
+    for _ in range(args.rounds):
+        order += args.trees + args.trees[::-1]
+
+    def child(*cmd) -> str:
+        p = subprocess.run([sys.executable, __file__, *cmd], capture_output=True, text=True)
+        if p.returncode:
+            print(p.stdout[-4000:], p.stderr[-4000:], sep="\n", file=sys.stderr)
+            raise RuntimeError(f"{cmd}: exit {p.returncode}")
+        return p.stdout
+
+    results = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "inputs.pt")
+        child("--ab-capture", path)
+        for tree in order:
+            line = [ln for ln in child("--ab-child", tree, path, str(args.runs)).splitlines()
+                    if ln.startswith("{")][-1]
+            results.append(json.loads(line))
+            log(line)
+    keys = ("k2_phase4_ms", "k5_ms", "k1_ms", "k4_ms")
+    for tree in args.trees:
+        rs = [r for r in results if r["tree"] == tree]
+        summary = {k: statistics.median(r[k] for r in rs) for k in keys}
+        summary["k2_group_rays"] = rs[0]["k2_group_rays"]
+        for size, rows in rs[0]["k2_frames"].items():
+            summary[size] = [{k: (statistics.median(r["k2_frames"][size][i][k] for r in rs) if k.endswith("ms")
+                                  else row[k]) for k in row if k != "digest"} for i, row in enumerate(rows)]
+        summary["digests"] = sorted({(r["k2_digest"], r["k5_digest"], *(c["digest"] for rows in
+                                      r["k2_frames"].values() for c in rows)) for r in rs})
+        log(f"{tree}: {json.dumps(summary)}")
+    base = sass(args.trees[0])
+    for tree in args.trees[1:]:
+        other = sass(tree)
+        same = sorted(k for k in base if other.get(k) == base[k])
+        differ = sorted((set(base) | set(other)) - set(same))
+        log(f"sass {tree} against {args.trees[0]}: same {json.dumps(same)}; differ {json.dumps(differ)}")
+    log(smi)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1074,16 +1380,28 @@ def main() -> int:
     if not (ROOT / "nebulae_tpu_torch").is_dir():
         print("chip_smoke: nebulae_tpu_torch/ not found beside this script", file=sys.stderr)
         return 2
+    argv = sys.argv[1:]
+    if argv[:1] == ["--ab-child"]:
+        print(json.dumps(ab_child(argv[1], argv[2], int(argv[3]))), flush=True)
+        return 0
     sys.path.insert(0, str(ROOT))
+    if argv[:1] == ["--ab-capture"]:
+        ab_capture(argv[1])
+        return 0
+    if argv[:1] == ["--ab"]:
+        return ab_main(argv[1:])
+    if argv:
+        print(__doc__, file=sys.stderr)
+        return 2
 
-    from nebulae_tpu_torch.bvh.cbuilder import build_bvh_native
     from nebulae_tpu_torch.config import RenderConfig
     from nebulae_tpu_torch.engine.renderer import Renderer
+    from nebulae_tpu_torch.kernels import chunks as kc
     from nebulae_tpu_torch.kernels import svgf as ksvgf
     from nebulae_tpu_torch.kernels import trace as kt
     from nebulae_tpu_torch.kernels.build import native
     from nebulae_tpu_torch.passes.gbuffer import make_camera_arrays
-    from nebulae_tpu_torch.utils.testscenes import bench_camera, bench_scene, textured_scene
+    from nebulae_tpu_torch.utils.testscenes import bench_camera, textured_scene
 
     # 1. device
     clock = PhaseClock()
@@ -1105,22 +1423,12 @@ def main() -> int:
 
     # 3. scene
     t0 = time.perf_counter()
-    fs = bench_scene(seed=0)
-    log(f"scene: {fs.num_triangles} triangles, generated in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    bvh = build_bvh_native(fs.tri_pos, max_leaf=15)
-    log(f"bvh: {bvh.num_nodes} nodes in {(time.perf_counter() - t0) * 1e3:.1f} ms (native builder)")
-    cfg = RenderConfig(
-        width=WIDTH, height=HEIGHT, spp=SPP, max_bounces=BOUNCES, enable_svgf=True,
-        enable_tonemap=True, tracer="auto", lean_outputs=True, fast_bounce_shading=False,
-        bucket_scheduling=True,
-    )
-    t0 = time.perf_counter()
-    renderer = Renderer(fs, cfg, bvh=bvh)
+    fs, bvh, cfg, renderer = bench_renderer()
     tables = renderer.tables
-    log(f"tables: {tables['fat4nodes'].shape[0]} fat4 nodes, {tables['tris'].shape[0]} slots, "
-        f"{table_bytes(tables)} bytes, stack depth {tables['stack_depth']}, "
-        f"renderer set up in {time.perf_counter() - t0:.1f} s")
+    log(f"scene: {fs.num_triangles} triangles, {bvh.num_nodes} BVH nodes (native builder); tables: "
+        f"{tables['fat4nodes'].shape[0]} fat4 nodes, {tables['tris'].shape[0]} slots, "
+        f"{table_bytes(tables)} bytes, stack depth {tables['stack_depth']}; "
+        f"set up in {time.perf_counter() - t0:.1f} s")
     scene = renderer.scene
     cam_obj = bench_camera(fs)
     cam = make_camera_arrays(cam_obj, WIDTH, HEIGHT, dev)
@@ -1139,14 +1447,44 @@ def main() -> int:
         f"plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms ({h.by}), max err {h.err:.3g}, work {h.work}")
 
     # Bounce and shadow rays from primary surface points, as at a path vertex.
+    def k2(a, b, l_, tb, tl):
+        return kt.shadow_closest_fat4(a, b, l_, tables, tb, tl)
+
+    def k2_plain(a, b, l_, tb, tl, w):
+        return kt.shadow_closest_fat4_plain(a, b, l_, tables, tb, tl, work=w)
+
     h = Held()
-    hit, occ = hold_combo(h, "K2", lambda a, b, l_, tb, tl: kt.shadow_closest_fat4(a, b, l_, tables, tb, tl),
-                          lambda a, b, l_, tb, tl, w: kt.shadow_closest_fat4_plain(a, b, l_, tables, tb, tl, work=w),
-                          ro, rb, rl, tables)
+    hit, occ = hold_combo(h, "K2", k2, k2_plain, ro, rb, rl, tables)
+    log(f"K2 combo: {N_RANDOM} rays (the group kernel takes up to {kt.combo_group_rays()}), bounce hit "
+        f"{float((hit['tri'] >= 0).float().mean()):.3f}, occluded {float(occ.float().mean()):.3f}, "
+        f"kernel {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms ({h.by}), "
+        f"max err {h.err:.3g}, work {h.work}")
+    # K2 on the main path's own launches: those of one 1080p frame, each held
+    # against its plain version on the inputs the frame gave it.
+    h = Held()
+    frame_launches = recorded_launches(kt.shadow_closest_fat4, lambda: renderer.render(cam_obj))
+    for i, (a, b, l_, tb, tl) in enumerate(frame_launches):
+        ms = h.ms
+        hold_combo(h, f"K2 frame launch {i}", k2, k2_plain, a, b, l_, tables, tb, tl)
+        log(f"K2 frame launch {i}: {a.shape[0]} rays, kernel {h.ms - ms:.4f} ms")
     report["shadow_closest_fat4"] = h.entry()
-    log(f"K2 combo: {N_RANDOM} rays, bounce hit {float((hit['tri'] >= 0).float().mean()):.3f}, occluded "
-        f"{float(occ.float().mean()):.3f}, kernel {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, "
+    log(f"K2 on a frame's {len(frame_launches)} launches: kernel {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, "
         f"bound {h.bound:.4f} ms ({h.by}), max err {h.err:.3g}, work {h.work}")
+    del frame_launches
+
+    # The fused walk at the stress shapes, on the one table (K2) and on the
+    # 139k scene's triangle chunks under a 5 MB budget (its SlotRange build).
+    stress_combo("K2", k2, k2_plain, ro, rb, rl)
+    budget = kc.TRI_CHUNK_TABLE_BUDGET
+    kc.TRI_CHUNK_TABLE_BUDGET = 5 * 1024 * 1024
+    try:
+        tri_chunks = kt.tables_to(kc.pack_bvh_tri_chunks(bvh, fs.tri_pos, cfg.bvh_tri_group), dev)["tri_chunks"]
+    finally:
+        kc.TRI_CHUNK_TABLE_BUDGET = budget
+    for c in tri_chunks:
+        _, _, combo, combo_p, _, _ = _slot_fns(c)
+        stress_combo(f"K6b chunk [{c['slot_lo']}, {c['slot_hi']}) of {len(tri_chunks)}", combo, combo_p,
+                     ro, rb, rl)
 
     h = Held()
     occ = hold_any(h, "K3", lambda a, b, t: kt.any_hit_fat4(a, b, tables, t),
@@ -1156,10 +1494,7 @@ def main() -> int:
         f"plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms ({h.by}), work {h.work}")
 
     # K4 on a 1080p frame's guidance buffers with noisy radiance.
-    rad = (gbuf["albedo"] * torch.rand((n_pix, 1), device=dev, generator=gen) * 4.0).reshape(HEIGHT, WIDTH, 3)
-    var = torch.rand((HEIGHT, WIDTH), device=dev, generator=gen) * 0.05
-    depth = gbuf["depth"].reshape(HEIGHT, WIDTH)
-    nrm = gbuf["normal_s"].reshape(HEIGHT, WIDTH, 3).contiguous()
+    rad, var, depth, nrm = atrous_inputs(gbuf, gen)
     phi = (cfg.svgf_phi_color, cfg.svgf_phi_normal, cfg.svgf_phi_depth)
     k4 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0)
     for step in (1, 2, 4, 8):
@@ -1192,8 +1527,8 @@ def main() -> int:
         res = {}
         t_plain = once_ms(lambda: res.update(
             v=ksvgf.atrous_step_bwd_plain(y, w_k, rad, var, depth, nrm, step, phi)))
-        torch.testing.assert_close(g_k, res["v"], rtol=1e-5, atol=1e-6)
         err = float((g_k - res["v"]).abs().max())
+        assert err == 0.0, f"K5 step {step}: max error {err:.3g} against its plain version"
         lhs = float((out_k.double() * y.double()).sum())
         rhs = float((rad.double() * g_k.double()).sum())
         adj = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
@@ -1208,6 +1543,32 @@ def main() -> int:
         k5["bound_ms"] += b_ms / 4
     k5["bound_by"] = bound_ms(k5_bytes, k5_ops)[1]
     report["atrous_bwd"] = k5
+    # K5 on a ragged 1917x1079 frame, so that every tile edge of every step
+    # is cut: max error 0, and the adjoint identity against K4.
+    rh, rw = 1079, 1917
+    rrad = torch.rand((rh, rw, 3), device=dev, generator=gen) * 2.0
+    rvar = torch.rand((rh, rw), device=dev, generator=gen) * 0.05
+    rdep = 3.0 + torch.rand((rh, rw), device=dev, generator=gen) * 0.01
+    rnrm = torch.nn.functional.normalize(
+        torch.randn((rh, rw, 3), device=dev, generator=gen) * 0.05 + torch.tensor([0.0, 0.0, 1.0], device=dev), dim=-1)
+    for step in (1, 2, 4, 8):
+        out_r, w_r = ksvgf.atrous_step(rrad, rvar, rdep, rnrm, step, phi)
+        y_r = torch.randn((rh, rw, 3), device=dev, generator=gen)
+        g_r = ksvgf.atrous_step_bwd(y_r, w_r, rrad, rvar, rdep, rnrm, step, phi)
+        err = float((g_r - ksvgf.atrous_step_bwd_plain(y_r, w_r, rrad, rvar, rdep, rnrm, step, phi)).abs().max())
+        lhs = float((out_r.double() * y_r.double()).sum())
+        rhs = float((rrad.double() * g_r.double()).sum())
+        adj = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
+        assert err == 0.0 and adj <= 1e-5, f"K5 ragged step {step}: max error {err:.3g}, adjoint {adj:.3g}"
+        log(f"K5 ragged {rw}x{rh} step {step}: max err {err:.3g}, adjoint rel err {adj:.3g}")
+    # K5's build for a phi_normal other than SVGF's 128 (taken at run time).
+    phi64 = (phi[0], 64, phi[2])
+    _, w_r = ksvgf.atrous_step(rrad, rvar, rdep, rnrm, 2, phi64)
+    g_r = ksvgf.atrous_step_bwd(y_r, w_r, rrad, rvar, rdep, rnrm, 2, phi64)
+    err = float((g_r - ksvgf.atrous_step_bwd_plain(y_r, w_r, rrad, rvar, rdep, rnrm, 2, phi64)).abs().max())
+    assert err == 0.0, f"K5 with phi_normal 64: max error {err:.3g}"
+    log(f"K5 ragged step 2 with phi_normal 64: max err {err:.3g}")
+    del rrad, rvar, rdep, rnrm, out_r, w_r, y_r, g_r
     # Through autograd on the card: the step stays in the graph, and its
     # backward is K5.
     x = rad.clone().requires_grad_(True)
@@ -1254,7 +1615,7 @@ def main() -> int:
         f"{rays / frame_s / 1e6:.2f} Mrays/s, ldr mean {float(ldr.mean()):.4f}, launches {launches}, "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_frame(lambda: renderer.render(cam_obj),
-                  ("closest_fat4_kernel", "combo_fat4_kernel", "any_fat4_kernel", "atrous_fwd_kernel"),
+                  ("closest_fat4_kernel", "combo_fat4", "any_fat4_kernel", "atrous_fwd_kernel"),
                   frame_s * 1e3)
 
     # A small frame on the GPU against the CPU through the plain versions.

@@ -36,8 +36,41 @@
 // a contiguous row (a fat4 node is 128 bytes, a fat2 node 64, a triangle 40)
 // read through the read-only path, and relies on the caller sorting rays for
 // coherence so that neighbouring threads walk the same rows.  Warp divergence
-// is the known cost left for a later optimisation (persistent threads, wide
-// loads).
+// is the known cost left for a later optimisation.
+//
+// K2 (combo_fat4_kernel and combo_fat4_group_kernel, and so the paged and
+// SlotRange builds) has its own design, below the K1 kernel.  On the bench
+// scene (~139k triangles, 1080p) it is bound by the latency of each ray's
+// chain of dependent row loads and by the instructions a visit issues, not
+// by bytes or FLOPs: its bound is ~0.04 ms against ~1.1 ms at 2^21 rays.  A
+// frame's launches after the first (10^3-10^4 lanes) leave the card nearly
+// empty, and one thread per ray then takes as long as its slowest warp's
+// walk, ~0.36 ms each.  Kept, each against the design before it on the same
+// card in the same run (chip_smoke.py --ab; H100 80GB HBM3 at 700 W; ms
+// at 2^21 rays, then the sum of a frame's three launches replayed):
+//   - wide loads (8 16-byte loads per row, 5 8-byte loads per triangle,
+//     one triangle load for both rays): 1.485 -> 1.099 and 1.657 -> 1.269;
+//   - the leaf loop unrolled by 4, so that triangles overlap: 1.110 ->
+//     1.092 and 1.318 -> 1.210;
+//   - 8 lanes per ray (the group kernel) up to 540,672 rays on an H100: a
+//     frame's later launches 0.341 -> 0.152 and 0.373 -> 0.137 ms
+//     (replayed; 0.36 -> 0.07 ms each in a profiled frame), its first
+//     launch (443k rays) 0.458 -> 0.395; larger launches keep one thread
+//     per ray (see launch_combo_fat4).
+// Tried and dropped, each no better than the kept design in its run:
+//   - the stack in shared memory, [depth][128] (1.129, 1.263), and with
+//     __launch_bounds__(128, 8) for 32 of 64 warps per SM (64 registers,
+//     24 bytes of spills; 1.118, 1.302);
+//   - persistent warps whose idle lanes fetch rays from an atomic counter in
+//     sorted order (74 registers; 1.172 against 1.148, 1.332 against 1.294);
+//   - an L1 prefetch of the next row before the leaf tests (1.200, 1.314);
+//   - the leaf loop unrolled by 8 (1.146 against 1.145, 1.232 against
+//     1.263);
+//   - the next node kept in a register instead of on the stack (1.060
+//     against 1.048, 1.252 against 1.175).
+// combo_fat4_kernel uses 78 registers and a 512-byte stack frame (the
+// 128-entry stack): 24 of 64 warps per SM; the group kernel 84 registers:
+// 20 warps.
 //
 // Build with --fmad=false: the plain PyTorch version rounds after every
 // multiply and add, and nvcc would otherwise contract a*b-c into an FMA.
@@ -234,6 +267,88 @@ __global__ void closest_fat4_kernel(const float* __restrict__ o, const float* __
   v_out[i] = bv;
 }
 
+// K2, the fused shadow+bounce walk, redesigned for Hopper (see the head of
+// this file for what bounds it and what was measured).  It visits the same
+// nodes and tests the same triangles in the same order as the walks above,
+// with the same arithmetic, so tri and occ stay equal to
+// shadow_closest_fat4_plain bit for bit.  What changes is how a visit reads
+// memory: a 128-byte fat4 row is 8 16-byte loads issued together right
+// after the pop, and a 40-byte triangle 5 8-byte loads, made once for both
+// rays (the wrapper checks the alignment these loads need).  The visit's
+// boxes, hit masks and encodings stay in registers: bit masks and selects,
+// no arrays indexed at run time.
+struct Box {
+  float lx, ly, lz, hx, hy, hz;
+};
+
+__device__ __forceinline__ bool slab_box(const Box& bx, const Ray& r, float cap) {
+  float t0x = bx.lx * r.ix - r.oix;
+  float t1x = bx.hx * r.ix - r.oix;
+  float t0y = bx.ly * r.iy - r.oiy;
+  float t1y = bx.hy * r.iy - r.oiy;
+  float t0z = bx.lz * r.iz - r.oiz;
+  float t1z = bx.hz * r.iz - r.oiz;
+  float tenter = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
+  float texit = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+  return (tenter <= texit) && (texit > kEps) && (tenter < cap);
+}
+
+struct Tri {
+  float v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z;
+  int id;
+};
+
+__device__ __forceinline__ Tri load_tri(const float* __restrict__ tv) {
+  const float2* p = reinterpret_cast<const float2*>(tv);
+  float2 a = __ldg(p), b = __ldg(p + 1), c = __ldg(p + 2), d = __ldg(p + 3), e = __ldg(p + 4);
+  return {a.x, a.y, b.x, b.y, c.x, c.y, d.x, d.y, e.x, __float_as_int(e.y)};
+}
+
+// moller() on a triangle already in registers.
+__device__ __forceinline__ bool moller_tri(const Tri& tr, const Ray& r, float cap, float& t,
+                                           float& u, float& v) {
+  float px = r.dy * tr.e2z - r.dz * tr.e2y;
+  float py = r.dz * tr.e2x - r.dx * tr.e2z;
+  float pz = r.dx * tr.e2y - r.dy * tr.e2x;
+  float det = (tr.e1x * px + tr.e1y * py) + tr.e1z * pz;
+  float inv_det = (fabsf(det) < kEps) ? 0.0f : 1.0f / (det == 0.0f ? 1.0f : det);
+  float tvx = r.ox - tr.v0x, tvy = r.oy - tr.v0y, tvz = r.oz - tr.v0z;
+  u = ((tvx * px + tvy * py) + tvz * pz) * inv_det;
+  float qx = tvy * tr.e1z - tvz * tr.e1y;
+  float qy = tvz * tr.e1x - tvx * tr.e1z;
+  float qz = tvx * tr.e1y - tvy * tr.e1x;
+  v = ((r.dx * qx + r.dy * qy) + r.dz * qz) * inv_det;
+  t = ((tr.e2x * qx + tr.e2y * qy) + tr.e2z * qz) * inv_det;
+  return (fabsf(det) >= kEps) && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
+         (t > kEps) && (t < cap);
+}
+
+__device__ __forceinline__ int pick(int k, int a, int b, int c, int d) {
+  return k == 0 ? a : (k == 1 ? b : (k == 2 ? c : d));
+}
+
+// near_first() over the direction signs as bits (x, y, z at bits 0, 1, 2).
+__device__ __forceinline__ bool near_first_bits(int om, unsigned pos) {
+  return ((pos >> (om >> 1)) & 1u) == static_cast<unsigned>(om & 1);
+}
+
+// push_near_first() for K2: the slots in the `inner` mask, by the order meta
+// om and the sign bits pos, from encodings in registers.
+__device__ __forceinline__ void push_inner(int* stack, int& sp, const int (&enc)[4],
+                                           unsigned inner, int om, unsigned pos) {
+  bool ns = near_first_bits(om / 36, pos);
+  bool nl = near_first_bits((om % 36) / 6, pos);
+  bool nr = near_first_bits(om % 6, pos);
+  int ln = nl ? 0 : 1, lf = nl ? 1 : 0;
+  int rn = nr ? 2 : 3, rf = nr ? 3 : 2;
+  const int order[4] = {ns ? rf : lf, ns ? rn : ln, ns ? lf : rf, ns ? ln : rn};
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    int k = order[m];
+    if ((inner >> k) & 1u) stack[sp++] = pick(k, enc[0], enc[1], enc[2], enc[3]) >> 5;
+  }
+}
+
 template <class Gate>
 __global__ void combo_fat4_kernel(const float* __restrict__ o, const float* __restrict__ b,
                                   const float* __restrict__ l, const float* __restrict__ tmax_b,
@@ -257,40 +372,56 @@ __global__ void combo_fat4_kernel(const float* __restrict__ o, const float* __re
   bool occ = false;
   if (live_b || live_l) {
     int stack[kStackMax];
+    const float4* rows = reinterpret_cast<const float4*>(nodes);
+    unsigned pos = static_cast<unsigned>(rb.pos[0]) | static_cast<unsigned>(rb.pos[1]) << 1 |
+                   static_cast<unsigned>(rb.pos[2]) << 2;
     int sp = 0;
     stack[sp++] = 0;
     while (sp > 0) {
-      const float* row = nodes + static_cast<int64_t>(stack[--sp]) * kNodeStride;
-      bool box_b[4], box_l[4];
+      const float4* row = rows + static_cast<int64_t>(stack[--sp]) * (kNodeStride / 4);
+      float4 q0 = __ldg(row), q1 = __ldg(row + 1), q2 = __ldg(row + 2), q3 = __ldg(row + 3);
+      float4 q4 = __ldg(row + 4), q5 = __ldg(row + 5), q6 = __ldg(row + 6), q7 = __ldg(row + 7);
+      const Box box[4] = {{q0.x, q0.y, q0.z, q0.w, q1.x, q1.y},
+                          {q1.z, q1.w, q2.x, q2.y, q2.z, q2.w},
+                          {q3.x, q3.y, q3.z, q3.w, q4.x, q4.y},
+                          {q4.z, q4.w, q5.x, q5.y, q5.z, q5.w}};
+      const int enc[4] = {__float_as_int(q6.x), __float_as_int(q6.y), __float_as_int(q6.z),
+                          __float_as_int(q6.w)};
+      unsigned mb = 0, ml = 0, leaves = 0, inner = 0;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        box_b[k] = live_b && slab(row, k, rb, bt);
-        box_l[k] = live_l && !occ && slab(row, k, rl, cap_l);
+        bool hb = live_b && slab_box(box[k], rb, bt);
+        bool hl = live_l && !occ && slab_box(box[k], rl, cap_l);
+        int field = enc[k] & 31;
+        mb |= static_cast<unsigned>(hb) << k;
+        ml |= static_cast<unsigned>(hl) << k;
+        if ((hb || hl) && is_leaf(field) && gate.resident(enc[k] >> 5)) leaves |= 1u << k;
+        if ((hb || hl) && field >= kInnerField) inner |= 1u << k;
       }
-      Fields f = decode(row);
-      for (int k = 0; k < 4; ++k) {
-        bool tested = box_b[k] || box_l[k];
-        if (!(tested && is_leaf(f.field[k]) && gate.resident(f.meta[k]))) continue;
-        int first = gate.row(f.meta[k]);
-        for (int s = 0; s < f.field[k]; ++s) {
-          const float* slot = tris + (static_cast<int64_t>(first) + s) * G * kTriStride;
-          for (int g = 0; g < G; ++g) {
-            const float* tv = slot + g * kTriStride;
-            float t, u, v;
-            if (box_b[k] && moller(tv, rb, bt, t, u, v)) {
-              bt = t;
-              btri = __float_as_int(__ldg(tv + 9));
-              bu = u;
-              bv = v;
-            }
-            if (box_l[k] && !occ && moller(tv, rl, cap_l, t, u, v)) occ = true;
+      // Leaf slots in slot order 0..3, as the plain walk takes them.
+      while (leaves) {
+        int k = __ffs(leaves) - 1;
+        leaves &= leaves - 1;
+        int e = pick(k, enc[0], enc[1], enc[2], enc[3]);
+        bool tb = (mb >> k) & 1u, tl = (ml >> k) & 1u;
+        const float* slot = tris + static_cast<int64_t>(gate.row(e >> 5)) * G * kTriStride;
+        int count = (e & 31) * G;
+        // Unrolled so that the next triangles' loads and arithmetic, which
+        // do not depend on bt, overlap this one's test and update.
+#pragma unroll 4
+        for (int j = 0; j < count; ++j) {
+          Tri tr = load_tri(slot + j * kTriStride);
+          float t, u, v;
+          if (tb && moller_tri(tr, rb, bt, t, u, v)) {
+            bt = t;
+            btri = tr.id;
+            bu = u;
+            bv = v;
           }
+          if (tl && !occ && moller_tri(tr, rl, cap_l, t, u, v)) occ = true;
         }
       }
-      bool ok[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) ok[k] = (box_b[k] || box_l[k]) && f.field[k] >= kInnerField;
-      push_near_first(stack, sp, f, ok, rb.pos);
+      push_inner(stack, sp, enc, inner, __float_as_int(q7.x), pos);
     }
   }
   t_out[i] = btri >= 0 ? bt : __int_as_float(0x7f800000);
@@ -298,6 +429,128 @@ __global__ void combo_fat4_kernel(const float* __restrict__ o, const float* __re
   u_out[i] = bu;
   v_out[i] = bv;
   occ_out[i] = occ;
+}
+
+// K2 for launches of up to a few hundred thousand rays (a path's vertices:
+// a frame's later launches hold 10^3-10^4 lanes, too few to fill the card,
+// and each warp's time is its slowest ray's walk): kGroup lanes walk one ray
+// together, so that a visit's box tests and a leaf slot's triangles run side
+// by side.  Lanes 0-3 test the bounce ray against boxes
+// 0-3, lanes 4-7 the shadow ray; a slot's triangles are dealt out to the
+// lanes and tested against the cap from before the slot, and the bounce hit
+// is the least t with the earliest triangle on a tie, which is the answer
+// of the sequential test.  Every lane keeps the same stack and ray state.
+constexpr int kGroup = 8;
+
+template <class Gate>
+__global__ void combo_fat4_group_kernel(const float* __restrict__ o, const float* __restrict__ b,
+                                        const float* __restrict__ l,
+                                        const float* __restrict__ tmax_b, int sb,
+                                        const float* __restrict__ tmax_l, int sl,
+                                        const float* __restrict__ nodes,
+                                        const float* __restrict__ tris, int G, int n,
+                                        float* __restrict__ t_out, int32_t* __restrict__ tri_out,
+                                        float* __restrict__ u_out, float* __restrict__ v_out,
+                                        bool* __restrict__ occ_out, Gate gate) {
+  int i = (blockIdx.x * blockDim.x + threadIdx.x) / kGroup;
+  if (i >= n) return;  // the whole group
+  const int sub = threadIdx.x % kGroup;
+  const int base = (threadIdx.x & 31) - sub;
+  const unsigned group = ((1u << kGroup) - 1u) << base;
+  float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
+  Ray rb = make_ray(ox, oy, oz, b[3 * i], b[3 * i + 1], b[3 * i + 2]);
+  Ray rl = make_ray(ox, oy, oz, l[3 * i], l[3 * i + 1], l[3 * i + 2]);
+  float bt = tmax_b[i * sb];
+  float cap_l = tmax_l[i * sl];
+  bool live_b = !is_dead(ox, rb.dx, rb.dy, rb.dz) && bt > kEps;
+  bool live_l = !is_dead(ox, rl.dx, rl.dy, rl.dz) && cap_l > kEps;
+  int btri = -1;
+  float bu = 0.0f, bv = 0.0f;
+  bool occ = false;
+  if (live_b || live_l) {
+    int stack[kStackMax];
+    unsigned pos = static_cast<unsigned>(rb.pos[0]) | static_cast<unsigned>(rb.pos[1]) << 1 |
+                   static_cast<unsigned>(rb.pos[2]) << 2;
+    const bool shadow_lane = sub >= 4;
+    int sp = 0;
+    stack[sp++] = 0;
+    while (sp > 0) {
+      const float* row = nodes + static_cast<int64_t>(stack[--sp]) * kNodeStride;
+      // This lane's box, 6 floats at 24 * (sub % 4) bytes: 3 8-byte loads.
+      const float2* bp = reinterpret_cast<const float2*>(row + 6 * (sub & 3));
+      float2 b0 = __ldg(bp), b1 = __ldg(bp + 1), b2 = __ldg(bp + 2);
+      float4 q6 = __ldg(reinterpret_cast<const float4*>(row) + 6);
+      int om = __float_as_int(__ldg(row + 28));
+      const Box bx = {b0.x, b0.y, b1.x, b1.y, b2.x, b2.y};
+      bool hit = shadow_lane ? live_l && !occ && slab_box(bx, rl, cap_l)
+                             : live_b && slab_box(bx, rb, bt);
+      unsigned bits = __ballot_sync(group, hit) >> base;
+      unsigned mb = bits & 15u, ml = (bits >> 4) & 15u;
+      const int enc[4] = {__float_as_int(q6.x), __float_as_int(q6.y), __float_as_int(q6.z),
+                          __float_as_int(q6.w)};
+      unsigned leaves = 0, inner = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        bool tested = ((mb | ml) >> k) & 1u;
+        int field = enc[k] & 31;
+        if (tested && is_leaf(field) && gate.resident(enc[k] >> 5)) leaves |= 1u << k;
+        if (tested && field >= kInnerField) inner |= 1u << k;
+      }
+      while (leaves) {
+        int k = __ffs(leaves) - 1;
+        leaves &= leaves - 1;
+        int e = pick(k, enc[0], enc[1], enc[2], enc[3]);
+        bool tb = (mb >> k) & 1u, tl = (ml >> k) & 1u;
+        const float* slot = tris + static_cast<int64_t>(gate.row(e >> 5)) * G * kTriStride;
+        for (int s = 0; s < (e & 31); ++s, slot += G * kTriStride) {
+          // This lane's triangles g = sub, sub + kGroup, ... of the slot.
+          float best_t = bt, best_u = 0.0f, best_v = 0.0f;
+          int best_g = G, best_id = -1;
+          bool hit_l = false;
+          for (int g = sub; g < G; g += kGroup) {
+            Tri tr = load_tri(slot + g * kTriStride);
+            float t, u, v;
+            if (tb && moller_tri(tr, rb, bt, t, u, v) && t < best_t) {
+              best_t = t;
+              best_g = g;
+              best_u = u;
+              best_v = v;
+              best_id = tr.id;
+            }
+            if (tl && !occ && moller_tri(tr, rl, cap_l, t, u, v)) hit_l = true;
+          }
+          // The group's least (t, g).
+          float win_t = best_t;
+          int win_g = best_g;
+#pragma unroll
+          for (int off = kGroup / 2; off > 0; off >>= 1) {
+            float ot = __shfl_xor_sync(group, win_t, off);
+            int og = __shfl_xor_sync(group, win_g, off);
+            if (ot < win_t || (ot == win_t && og < win_g)) {
+              win_t = ot;
+              win_g = og;
+            }
+          }
+          if (win_g < G) {
+            int owner = base + win_g % kGroup;
+            bt = win_t;
+            btri = __shfl_sync(group, best_id, owner);
+            bu = __shfl_sync(group, best_u, owner);
+            bv = __shfl_sync(group, best_v, owner);
+          }
+          occ = occ || (__ballot_sync(group, hit_l) != 0u);
+        }
+      }
+      push_inner(stack, sp, enc, inner, om, pos);
+    }
+  }
+  if (sub == 0) {
+    t_out[i] = btri >= 0 ? bt : __int_as_float(0x7f800000);
+    tri_out[i] = btri;
+    u_out[i] = bu;
+    v_out[i] = bv;
+    occ_out[i] = occ;
+  }
 }
 
 template <class Gate>
@@ -636,6 +889,58 @@ __global__ void any_fat_kernel(const float* __restrict__ o, const float* __restr
 
 inline int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
 
+// K2's launch: the group kernel for n <= kGroupWaves * SMs * (resident
+// threads per SM) / kGroup rays (540,672 on an H100), else one thread per
+// ray.  For one view, more rays put more nearby origins into each sorted
+// warp, so one thread per ray gains with the count and the group kernel
+// does not.  On the bench scene's own first-vertex launches (H100 80GB
+// HBM3 at 700 W, chip_smoke.py --ab, each body on the same launch): 443k
+// rays (1080p) group 0.380 ms against 0.463; 788k (1440p) 0.707 against
+// 0.513; 1.77M (2160p) 1.414 against 0.850.  Every later launch (7.5k-59k
+// rays) is 2-4x faster as a group.
+constexpr int64_t kGroupWaves = 16;
+constexpr int kMaxDevices = 64;
+
+// The most rays the group kernel takes on the current device, read once
+// per device.
+cudaError_t group_rays(int64_t* rays) {
+  static int64_t cache[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cache[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
+    if (err != cudaSuccess) return err;
+    cache[dev] = kGroupWaves * sms * per_sm / kGroup;
+  }
+  *rays = cache[dev];
+  return cudaSuccess;
+}
+
+template <class Gate>
+int launch_combo_fat4(const float* o, const float* b, const float* l, const float* tmax_b, int sb,
+                      const float* tmax_l, int sl, const float* nodes, const float* tris, int G,
+                      int n, float* t, int32_t* tri, float* u, float* v, bool* occ, Gate gate,
+                      void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  int64_t most = 0;
+  cudaError_t err = group_rays(&most);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n <= most) {
+    combo_fat4_group_kernel<<<grid_for(n * kGroup), kThreads, 0, st>>>(
+        o, b, l, tmax_b, sb, tmax_l, sl, nodes, tris, G, n, t, tri, u, v, occ, gate);
+  } else {
+    combo_fat4_kernel<<<grid_for(n), kThreads, 0, st>>>(o, b, l, tmax_b, sb, tmax_l, sl, nodes,
+                                                        tris, G, n, t, tri, u, v, occ, gate);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -655,12 +960,13 @@ int nb_combo_fat4(const float* o, const float* b, const float* l, const float* t
                   const float* tmax_l, int sl, const float* nodes, const float* tris, int G,
                   int n, float* t, int32_t* tri, float* u, float* v, bool* occ,
                   void* stream) {
-  if (n > 0) {
-    combo_fat4_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, b, l, tmax_b, sb, tmax_l, sl, nodes, tris, G, n, t, tri, u, v, occ, AllSlots{});
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_combo_fat4(o, b, l, tmax_b, sb, tmax_l, sl, nodes, tris, G, n, t, tri, u, v, occ,
+                           AllSlots{}, stream);
 }
+
+// The most rays for which K2 (both builds) runs the group kernel on the
+// current device; one thread per ray above it.
+int nb_combo_fat4_group_rays(int64_t* rays) { return static_cast<int>(group_rays(rays)); }
 
 int nb_any_fat4(const float* o, const float* d, const float* tmax, int tmax_stride,
                 const float* nodes, const float* tris, int G, int n, bool* occ,
@@ -690,12 +996,8 @@ int nb_combo_fat4_slots(const float* o, const float* b, const float* l, const fl
                         int sb, const float* tmax_l, int sl, const float* nodes,
                         const float* tris, int G, int n, int slot_lo, int slot_hi, float* t,
                         int32_t* tri, float* u, float* v, bool* occ, void* stream) {
-  if (n > 0) {
-    combo_fat4_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, b, l, tmax_b, sb, tmax_l, sl, nodes, tris, G, n, t, tri, u, v, occ,
-        SlotRange{slot_lo, slot_hi});
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_combo_fat4(o, b, l, tmax_b, sb, tmax_l, sl, nodes, tris, G, n, t, tri, u, v, occ,
+                           SlotRange{slot_lo, slot_hi}, stream);
 }
 
 int nb_any_fat4_slots(const float* o, const float* d, const float* tmax, int tmax_stride,

@@ -181,6 +181,8 @@ def atrous_step_bwd(gbar, sum_w, radiance, variance, depth, normal, step: int, p
     h, w = radiance.shape[:2]
     dev = radiance.device
     _check(((gbar, 3), (sum_w, 1), (radiance, 3), (variance, 1), (depth, 1), (normal, 3)), h, w, dev)
+    if int(step) < 1:
+        raise ValueError(f"a-trous step must be >= 1, got {step}")
     if dev.type == "cpu":
         return atrous_step_bwd_plain(gbar, sum_w, radiance, variance, depth, normal, step, phi)
     grad = torch.empty((h, w, 3), dtype=torch.float32, device=dev)

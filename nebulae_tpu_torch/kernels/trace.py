@@ -809,8 +809,16 @@ def _check_tables(tables, dev, nodes_key="fat4nodes"):
         raise ValueError(f"{nodes_key} must be [n_nodes, {stride}]")
     if tables["tris"].dim() != 3 or tables["tris"].shape[2] != TRI_STRIDE:
         raise ValueError("tris must be [n_slots, G, 10]")
-    if tables["stack_depth"] > STACK_MAX:
-        raise ValueError("traversal stack deeper than the kernels hold")
+    if not 1 <= tables["stack_depth"] <= STACK_MAX:
+        raise ValueError(f"traversal stack depth {tables['stack_depth']} outside the kernels' 1..{STACK_MAX}")
+
+
+def _check_wide_loads(tables):
+    """K2 reads a fat4 row as 16-byte loads and a triangle as 8-byte loads:
+    a table whose start is not so aligned (a view at an odd offset) is
+    refused rather than read misaligned."""
+    if tables["fat4nodes"].data_ptr() % 16 or tables["tris"].data_ptr() % 8:
+        raise ValueError("fat4nodes must be 16-byte and tris 8-byte aligned for the fused walk's wide loads")
 
 
 def _cap_arg(t_max, n, dev):
@@ -900,10 +908,15 @@ def _any(entry, counter, plain, o, d, tables, t_max, nodes_key="fat4nodes", gate
     return occ
 
 
-def _combo(entry, counter, plain, o, b, l, tables, t_max_b, t_max_l, nodes_key="fat4nodes", gate=()):
-    """As _closest, for the fused shadow+bounce kernel -> (hit, occluded)."""
+def _combo(entry, counter, plain, o, b, l, tables, t_max_b, t_max_l, nodes_key="fat4nodes", gate=(),
+           family_check=None):
+    """As _closest, for the fused shadow+bounce kernel -> (hit, occluded);
+    `family_check(tables)` is the kernel family's own check of the tables.  While
+    counter.record is a list, each launch appends its rays and caps to it."""
     n, dev = _check_rays(o, b, l)
     _check_tables(tables, dev, nodes_key)
+    if family_check is not None:
+        family_check(tables)
     if not _use_kernel(dev):
         return plain()
     if n == 0 or tables[nodes_key].shape[0] == 0:
@@ -919,7 +932,19 @@ def _combo(entry, counter, plain, o, b, l, tables, t_max_b, t_max_l, nodes_key="
         _ptr(hit["tri"]), _ptr(hit["u"]), _ptr(hit["v"]), _ptr(occ), _stream(),
     ), entry)
     counter.launches += 1
+    if counter.record is not None:
+        counter.record.append(tuple(x.clone() if torch.is_tensor(x) else x
+                                    for x in (o, b, l, t_max_b, t_max_l)))
     return hit, occ
+
+
+def combo_group_rays() -> int:
+    """The most rays for which K2 (and its K6a / K6b builds) runs its group
+    kernel, 8 lanes per ray, on the current CUDA device; above it, one
+    thread per ray."""
+    rays = ctypes.c_int64(0)
+    check(native().lib.nb_combo_fat4_group_rays(ctypes.byref(rays)), "nb_combo_fat4_group_rays")
+    return int(rays.value)
 
 
 def closest_hit_fat4(o, d, tables: dict, t_max=float("inf")):
@@ -940,7 +965,7 @@ def shadow_closest_fat4(o, b, l, tables: dict, t_max_b=float("inf"), t_max_l=flo
     Returns (hit dict, occluded [N])."""
     return _combo("nb_combo_fat4", shadow_closest_fat4,
                   lambda: shadow_closest_fat4_plain(o, b, l, tables, t_max_b, t_max_l),
-                  o, b, l, tables, t_max_b, t_max_l)
+                  o, b, l, tables, t_max_b, t_max_l, family_check=_check_wide_loads)
 
 
 # K6a: the paged route (the `paged=True` builds of K1-K3).  On the GPU the
@@ -964,7 +989,7 @@ def shadow_closest_fat4_paged(o, b, l, tables: dict, t_max_b=float("inf"), t_max
     """K6a fused walk: K2 over the paged route's table."""
     return _combo("nb_combo_fat4", shadow_closest_fat4_paged,
                   lambda: shadow_closest_fat4_plain(o, b, l, tables, t_max_b, t_max_l),
-                  o, b, l, tables, t_max_b, t_max_l)
+                  o, b, l, tables, t_max_b, t_max_l, family_check=_check_wide_loads)
 
 
 # K6b: K1-K3 with the leaf slot gate, over one tri chunk of tables_to (the
@@ -996,7 +1021,7 @@ def shadow_closest_fat4_slots(o, b, l, chunk: dict, t_max_b=float("inf"), t_max_
     sr = _slot_range(chunk)
     return _combo("nb_combo_fat4_slots", shadow_closest_fat4_slots,
                   lambda: shadow_closest_fat4_plain(o, b, l, chunk, t_max_b, t_max_l, slot_range=sr),
-                  o, b, l, chunk, t_max_b, t_max_l, gate=sr)
+                  o, b, l, chunk, t_max_b, t_max_l, gate=sr, family_check=_check_wide_loads)
 
 
 # K7: fat2 walks over pack_bvh_fat's tables (bvh_wide=2).
@@ -1050,3 +1075,5 @@ WRAPPERS = (
 )
 for _fn in WRAPPERS:
     _fn.launches = 0
+for _fn in (shadow_closest_fat4, shadow_closest_fat4_paged, shadow_closest_fat4_slots, shadow_closest_fat):
+    _fn.record = None
