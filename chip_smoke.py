@@ -5,16 +5,20 @@
 
 Phases (any failure raises and exits non-zero):
   1. device   require CUDA; print the card's name and power limit; no TF32
-  2. build    nvcc-build the kernels and the native BVH builder
-  3. scene    the ~139k-triangle procedural bench scene, BVH, fat4 tables
+  2. build    nvcc-build the kernels
+  3. scene    the ~139k-triangle procedural bench scene, its BVH (the C++
+              builder, built with g++ at first use: its flags and seconds
+              are logged), fat4 tables
   4. kernels  K1-K5 against their plain PyTorch versions at main-path shapes
-              (1080p primary rays, 2^21 bounce/shadow rays, K2 on each of
-              its launches in a 1080p frame, 1080p a-trous forward and
-              backward, with K5's adjoint identity against K4); the fused
-              walk K2 and its slot-gated build (over the bench scene cut
-              into triangle chunks) at 1, 31, 33 and 4,097 rays and one
-              past its group kernel's limit, with zero caps and dead lanes;
-              K5 on a ragged 1917x1079 frame
+              (1080p primary rays, 2^21 bounce/shadow rays, K1 and K2 on
+              each of their launches in a 1080p frame, 1080p a-trous
+              forward and backward at max error 0, with K5's adjoint
+              identity against K4); K1 and K2 and their slot-gated builds
+              (over the bench scene cut into triangle chunks, K1's chained
+              over them at 1080p) at 1, 31, 33 and 4,097 rays (K2 also one
+              past its group kernel's limit), with zero caps and dead
+              lanes; K4 and K5 on a ragged 1917x1079 frame and with
+              phi_normal 64
   5. slice    Renderer.render at 1920x1080, 1 spp, 4 bounces, full shading,
               SVGF, ACES: 3 warm-up and 5 timed frames, with every kernel's
               launch count read around them; then a 64x64 frame on the GPU
@@ -59,16 +63,19 @@ of the JAX package.
 compares source trees in one session on one GPU instead.  A TREE is a
 directory that holds a `nebulae_tpu_torch/` package: this checkout, or an
 unpacked `git archive` of another commit.  One process of this checkout
-saves K2's launches in one bench-scene frame at each of AB_SIZES, taken
-through the wrapper's record hook.  Then each tree runs in turn, A B B A
-per round, in a fresh process that builds its kernels, makes phase 4's
-inputs as phase 4 does, and times K2 at phase 4's shape and on each saved
-launch, K5 at steps 1, 2, 4 and 8, K1 and K4.  Where the tree's K2 has a
-group kernel, each frame launch is also timed with the other body: split
-into launches the group kernel takes, or padded with dead rays past them;
-the results must equal the launch's own.  Prints the card's name and power
-limit, one JSON line per process, each tree's medians and output digests,
-and which kernels' SASS (`cuobjdump -sass`) equals the first tree's.
+builds the bench scene's BVH and saves it, with K2's launches in one
+bench-scene frame at each of AB_SIZES, taken through the wrapper's record
+hook.  Then each tree runs in turn, A B B A per round, in a fresh process
+that builds its kernels, makes phase 4's inputs as phase 4 does on the
+saved BVH (so every tree walks the same tree), and times K1 on the 1080p
+primary rays (a frame's own launch), K2 at phase 4's shape and on each
+saved launch, and K4 and K5 at steps 1, 2, 4 and 8.  Where the tree's K2
+has a group kernel, each frame launch is also timed with the other body:
+split into launches the group kernel takes, or padded with dead rays past
+them; the results must equal the launch's own.  Prints the card's name and
+power limit, one JSON line per process, each tree's medians (K4 and K5 per
+step) and output digests (K1, K2, K4, K5), and which kernels' SASS
+(`cuobjdump -sass`) equals the first tree's.
 """
 
 from __future__ import annotations
@@ -418,15 +425,41 @@ def stress_combo(tag, kernel, plain, ro, rb, rl) -> None:
     log(f"{tag} stress: {sizes} rays with zero caps and dead lanes equal their plain version")
 
 
-def recorded_launches(wrapper, render) -> list:
-    """The inputs (o, b, l, cap_b, cap_l) of each launch of a fused-walk
-    wrapper in one render(), through the wrapper's record hook."""
-    wrapper.record = []
+def stress_closest(tag, kernel, plain, o, d) -> None:
+    """A closest-hit walk against its plain version at 1, 31, 33 and 4,097
+    rays (a partial warp, a warp and a lane, a partial block), spread over
+    the 1080p primary rays, with per-ray caps of which some are 0 and some
+    short, dead origins and zero directions: tri equal, t/u/v within rtol
+    1e-6."""
+    import torch
+
+    from nebulae_tpu_torch.tracer.sorting import DEAD_ORIGIN
+
+    sizes = (1, 31, 33, 4097)
+    for n in sizes:
+        pick = torch.linspace(0, o.shape[0] - 1, n, device=o.device).long()
+        a, b = o[pick].clone(), d[pick].clone()
+        i = torch.arange(n, device=a.device)
+        cap = torch.where(i % 3 == 1, 0.0, torch.where(i % 3 == 2, 2.0, float("inf")))
+        a[i % 7 == 3] = DEAD_ORIGIN
+        b[i % 11 == 5] = 0.0
+        _hit_err(kernel(a, b, cap), plain(a, b, cap, {}), f"{tag} at {n} rays")
+    log(f"{tag} stress: {sizes} rays with zero and short caps and dead lanes equal their plain version")
+
+
+def recorded_launches(render, *wrappers) -> list:
+    """The inputs of each launch of each wrapper in one render(), through
+    the wrappers' record hooks: one list per wrapper, of (o, d, cap) for a
+    closest-hit walk and (o, b, l, cap_b, cap_l) for a fused walk."""
+    for w in wrappers:
+        w.record = []
     try:
         render()
     finally:
-        rec, wrapper.record = wrapper.record, None
-    return rec
+        recs = [w.record for w in wrappers]
+        for w in wrappers:
+            w.record = None
+    return recs
 
 
 def _merge_work(into, work):
@@ -1145,16 +1178,18 @@ def fat2_phase(base_cfg, fs, bvh) -> tuple[dict, dict]:
     return report, launches
 
 
-def bench_renderer(width=WIDTH, height=HEIGHT):
-    """The ~139k-triangle bench scene's BVH (native builder) and a Renderer
-    of the main path's configuration -> (fs, bvh, cfg, renderer)."""
+def bench_renderer(width=WIDTH, height=HEIGHT, bvh=None):
+    """The ~139k-triangle bench scene's BVH (the C++ builder, unless one is
+    given) and a Renderer of the main path's configuration -> (fs, bvh,
+    cfg, renderer)."""
     from nebulae_tpu_torch.bvh.cbuilder import build_bvh_native
     from nebulae_tpu_torch.config import RenderConfig
     from nebulae_tpu_torch.engine.renderer import Renderer
     from nebulae_tpu_torch.utils.testscenes import bench_scene
 
     fs = bench_scene(seed=0)
-    bvh = build_bvh_native(fs.tri_pos, max_leaf=15)
+    if bvh is None:
+        bvh = build_bvh_native(fs.tri_pos, max_leaf=15)
     cfg = RenderConfig(
         width=width, height=height, spp=SPP, max_bounces=BOUNCES, enable_svgf=True,
         enable_tonemap=True, tracer="auto", lean_outputs=True, fast_bounce_shading=False,
@@ -1179,19 +1214,23 @@ def atrous_inputs(gbuf, gen):
 AB_SIZES = ((1920, 1080), (2560, 1440), (3840, 2160))
 
 
+BVH_FIELDS = ("node_lo", "node_hi", "node_first", "node_count", "node_skip", "node_right", "tri_index")
+
+
 def ab_capture(path: str) -> None:
-    """Save K2's launches in one bench-scene frame at each of AB_SIZES."""
+    """Save the bench scene's BVH, and K2's launches in one bench-scene
+    frame at each of AB_SIZES."""
     import torch
 
     from nebulae_tpu_torch.kernels import trace as kt
     from nebulae_tpu_torch.utils.testscenes import bench_camera
 
-    fs, _, _, renderer = bench_renderer()
+    fs, bvh, _, renderer = bench_renderer()
     frames = {}
     for w, h in AB_SIZES:
         renderer.resize(w, h)
-        frames[f"{w}x{h}"] = recorded_launches(kt.shadow_closest_fat4, lambda: renderer.render(bench_camera(fs)))
-    torch.save(frames, path)
+        (frames[f"{w}x{h}"],) = recorded_launches(lambda: renderer.render(bench_camera(fs)), kt.shadow_closest_fat4)
+    torch.save({"bvh": {k: torch.from_numpy(getattr(bvh, k)) for k in BVH_FIELDS}, "frames": frames}, path)
 
 
 def _digest(*tensors) -> str:
@@ -1238,6 +1277,7 @@ def ab_child(tree: str, path: str, runs: int) -> dict:
     sys.path.insert(0, tree)
     import torch
 
+    from nebulae_tpu_torch.bvh.builder import FlatBVH
     from nebulae_tpu_torch.kernels import svgf as ksvgf
     from nebulae_tpu_torch.kernels import trace as kt
     from nebulae_tpu_torch.kernels.build import native
@@ -1248,7 +1288,9 @@ def ab_child(tree: str, path: str, runs: int) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     lib = native()
-    fs, _, cfg, renderer = bench_renderer()
+    saved = torch.load(path)
+    bvh = FlatBVH(**{k: v.numpy() for k, v in saved["bvh"].items()})
+    fs, _, cfg, renderer = bench_renderer(bvh=bvh)
     tables = renderer.tables
     cam = make_camera_arrays(bench_camera(fs), WIDTH, HEIGHT, "cuda")
     (o, d), (ro, rb, rl), gbuf, gen = path_rays(
@@ -1263,11 +1305,13 @@ def ab_child(tree: str, path: str, runs: int) -> dict:
     hit, occ = k2(ro, rb, rl)
     res["k2_digest"] = _digest(hit["t"], hit["tri"], hit["u"], hit["v"], occ)
     res["k2_phase4_ms"] = timed_ms(lambda: k2(ro, rb, rl), runs)
+    hit = kt.closest_hit_fat4(o, d, tables)
+    res["k1_digest"] = _digest(hit["t"], hit["tri"], hit["u"], hit["v"])
     res["k1_ms"] = timed_ms(lambda: kt.closest_hit_fat4(o, d, tables), runs)
     most = kt.combo_group_rays() if hasattr(kt, "combo_group_rays") else None
     res["k2_group_rays"] = most
     res["k2_frames"] = {}
-    for size, launches in torch.load(path).items():
+    for size, launches in saved["frames"].items():
         rows = []
         for c in launches:
             hit, occ = k2(*c)
@@ -1283,15 +1327,17 @@ def ab_child(tree: str, path: str, runs: int) -> dict:
         res["k2_frames"][size] = rows
     phi = (cfg.svgf_phi_color, cfg.svgf_phi_normal, cfg.svgf_phi_depth)
     gen = torch.Generator(device="cuda").manual_seed(99)
-    digests = []
+    digests = {"k4": [], "k5": []}
     for step in (1, 2, 4, 8):
-        _, w_k = ksvgf.atrous_step(rad, var, depth, nrm, step, phi)
+        out_k, w_k = ksvgf.atrous_step(rad, var, depth, nrm, step, phi)
+        digests["k4"].append(_digest(out_k, w_k))
         y = torch.randn((HEIGHT, WIDTH, 3), device="cuda", generator=gen)
-        digests.append(_digest(ksvgf.atrous_step_bwd(y, w_k, rad, var, depth, nrm, step, phi)))
+        digests["k5"].append(_digest(ksvgf.atrous_step_bwd(y, w_k, rad, var, depth, nrm, step, phi)))
         res[f"k5_step{step}_ms"] = timed_ms(
             lambda: ksvgf.atrous_step_bwd(y, w_k, rad, var, depth, nrm, step, phi), runs)
         res[f"k4_step{step}_ms"] = timed_ms(lambda: ksvgf.atrous_step(rad, var, depth, nrm, step, phi), runs)
-    res["k5_digest"] = hashlib.sha256("".join(digests).encode()).hexdigest()[:16]
+    for k, ds in digests.items():
+        res[f"{k}_digest"] = hashlib.sha256("".join(ds).encode()).hexdigest()[:16]
     for k in ("k5", "k4"):
         res[f"{k}_ms"] = sum(res[f"{k}_step{s}_ms"] for s in (1, 2, 4, 8)) / 4
     return res
@@ -1350,7 +1396,8 @@ def ab_main(argv) -> int:
                     if ln.startswith("{")][-1]
             results.append(json.loads(line))
             log(line)
-    keys = ("k2_phase4_ms", "k5_ms", "k1_ms", "k4_ms")
+    keys = ("k1_ms", "k2_phase4_ms", "k4_ms", "k5_ms",
+            *(f"k{k}_step{s}_ms" for k in (4, 5) for s in (1, 2, 4, 8)))
     for tree in args.trees:
         rs = [r for r in results if r["tree"] == tree]
         summary = {k: statistics.median(r[k] for r in rs) for k in keys}
@@ -1358,8 +1405,9 @@ def ab_main(argv) -> int:
         for size, rows in rs[0]["k2_frames"].items():
             summary[size] = [{k: (statistics.median(r["k2_frames"][size][i][k] for r in rs) if k.endswith("ms")
                                   else row[k]) for k in row if k != "digest"} for i, row in enumerate(rows)]
-        summary["digests"] = sorted({(r["k2_digest"], r["k5_digest"], *(c["digest"] for rows in
-                                      r["k2_frames"].values() for c in rows)) for r in rs})
+        summary["digests"] = sorted({(r["k1_digest"], r["k2_digest"], r["k4_digest"], r["k5_digest"],
+                                      *(c["digest"] for rows in r["k2_frames"].values() for c in rows))
+                                     for r in rs})
         log(f"{tree}: {json.dumps(summary)}")
     base = sass(args.trees[0])
     for tree in args.trees[1:]:
@@ -1399,7 +1447,7 @@ def main() -> int:
     from nebulae_tpu_torch.kernels import chunks as kc
     from nebulae_tpu_torch.kernels import svgf as ksvgf
     from nebulae_tpu_torch.kernels import trace as kt
-    from nebulae_tpu_torch.kernels.build import native
+    from nebulae_tpu_torch.kernels.build import host_native, native
     from nebulae_tpu_torch.passes.gbuffer import make_camera_arrays
     from nebulae_tpu_torch.utils.testscenes import bench_camera, textured_scene
 
@@ -1425,7 +1473,10 @@ def main() -> int:
     t0 = time.perf_counter()
     fs, bvh, cfg, renderer = bench_renderer()
     tables = renderer.tables
-    log(f"scene: {fs.num_triangles} triangles, {bvh.num_nodes} BVH nodes (native builder); tables: "
+    builder = host_native()
+    log(f"scene: BVH builder {builder.path.name} ({' '.join(builder.flags)}), built in "
+        f"{builder.build_seconds:.2f} s")
+    log(f"scene: {fs.num_triangles} triangles, {bvh.num_nodes} BVH nodes (C++ builder); tables: "
         f"{tables['fat4nodes'].shape[0]} fat4 nodes, {tables['tris'].shape[0]} slots, "
         f"{table_bytes(tables)} bytes, stack depth {tables['stack_depth']}; "
         f"set up in {time.perf_counter() - t0:.1f} s")
@@ -1439,12 +1490,31 @@ def main() -> int:
     (o, d), (ro, rb, rl), gbuf, gen = path_rays(
         scene, lambda a, b: kt.closest_hit_fat4(a, b, tables), renderer.sun, cam)
     n_pix = o.shape[0]
+
+    def k1(a, b, t):
+        return kt.closest_hit_fat4(a, b, tables, t)
+
+    def k1_plain(a, b, t, w):
+        return kt.closest_hit_fat4_plain(a, b, tables, t, work=w)
+
     h = Held()
-    hit = hold_closest(h, "K1", lambda a, b, t: kt.closest_hit_fat4(a, b, tables, t),
-                       lambda a, b, t, w: kt.closest_hit_fat4_plain(a, b, tables, t, work=w), o, d, tables)
-    report["closest_fat4"] = h.entry()
-    log(f"K1 closest: {n_pix} rays, hit {float((hit['tri'] >= 0).float().mean()):.3f}, kernel {h.ms:.3f} ms, "
+    k1_hit = hold_closest(h, "K1", k1, k1_plain, o, d, tables)
+    log(f"K1 closest: {n_pix} rays, hit {float((k1_hit['tri'] >= 0).float().mean()):.3f}, kernel {h.ms:.3f} ms, "
         f"plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms ({h.by}), max err {h.err:.3g}, work {h.work}")
+    # K1 and K2 on the main path's own launches: those of one 1080p frame,
+    # each held against its plain version on the inputs the frame gave it.
+    k1_launches, k2_launches = recorded_launches(lambda: renderer.render(cam_obj), kt.closest_hit_fat4,
+                                                 kt.shadow_closest_fat4)
+    h = Held()
+    for i, (a, b, t) in enumerate(k1_launches):
+        ms = h.ms
+        hold_closest(h, f"K1 frame launch {i}", k1, k1_plain, a, b, tables, t)
+        log(f"K1 frame launch {i}: {a.shape[0]} rays, kernel {h.ms - ms:.4f} ms")
+    report["closest_fat4"] = h.entry()
+    log(f"K1 on a frame's {len(k1_launches)} launch(es): kernel {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, "
+        f"bound {h.bound:.4f} ms ({h.by}), max err {h.err:.3g}, work {h.work}")
+    stress_closest("K1", k1, k1_plain, o, d)
+    del k1_launches
 
     # Bounce and shadow rays from primary surface points, as at a path vertex.
     def k2(a, b, l_, tb, tl):
@@ -1459,21 +1529,20 @@ def main() -> int:
         f"{float((hit['tri'] >= 0).float().mean()):.3f}, occluded {float(occ.float().mean()):.3f}, "
         f"kernel {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms ({h.by}), "
         f"max err {h.err:.3g}, work {h.work}")
-    # K2 on the main path's own launches: those of one 1080p frame, each held
-    # against its plain version on the inputs the frame gave it.
     h = Held()
-    frame_launches = recorded_launches(kt.shadow_closest_fat4, lambda: renderer.render(cam_obj))
-    for i, (a, b, l_, tb, tl) in enumerate(frame_launches):
+    for i, (a, b, l_, tb, tl) in enumerate(k2_launches):
         ms = h.ms
         hold_combo(h, f"K2 frame launch {i}", k2, k2_plain, a, b, l_, tables, tb, tl)
         log(f"K2 frame launch {i}: {a.shape[0]} rays, kernel {h.ms - ms:.4f} ms")
     report["shadow_closest_fat4"] = h.entry()
-    log(f"K2 on a frame's {len(frame_launches)} launches: kernel {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, "
+    log(f"K2 on a frame's {len(k2_launches)} launches: kernel {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, "
         f"bound {h.bound:.4f} ms ({h.by}), max err {h.err:.3g}, work {h.work}")
-    del frame_launches
+    del k2_launches
 
     # The fused walk at the stress shapes, on the one table (K2) and on the
-    # 139k scene's triangle chunks under a 5 MB budget (its SlotRange build).
+    # 139k scene's triangle chunks under a 5 MB budget (its SlotRange build);
+    # there also K1's SlotRange build at the stress shapes and chained over
+    # the chunks on the 1080p primary rays, which must end at K1's hits.
     stress_combo("K2", k2, k2_plain, ro, rb, rl)
     budget = kc.TRI_CHUNK_TABLE_BUDGET
     kc.TRI_CHUNK_TABLE_BUDGET = 5 * 1024 * 1024
@@ -1481,10 +1550,19 @@ def main() -> int:
         tri_chunks = kt.tables_to(kc.pack_bvh_tri_chunks(bvh, fs.tri_pos, cfg.bvh_tri_group), dev)["tri_chunks"]
     finally:
         kc.TRI_CHUNK_TABLE_BUDGET = budget
+    h, best = Held(), None
     for c in tri_chunks:
-        _, _, combo, combo_p, _, _ = _slot_fns(c)
-        stress_combo(f"K6b chunk [{c['slot_lo']}, {c['slot_hi']}) of {len(tri_chunks)}", combo, combo_p,
-                     ro, rb, rl)
+        closest, closest_p, combo, combo_p, _, _ = _slot_fns(c)
+        tag = f"K6b chunk [{c['slot_lo']}, {c['slot_hi']}) of {len(tri_chunks)}"
+        stress_combo(tag, combo, combo_p, ro, rb, rl)
+        stress_closest(f"{tag} closest", closest, closest_p, o, d)
+        cap = float("inf") if best is None else best["t"]
+        best = _merge_hits(best, hold_closest(h, f"{tag} closest", closest, closest_p, o, d, c, cap))
+    assert torch.equal(best["t"], k1_hit["t"]) and torch.equal(best["tri"] >= 0, k1_hit["tri"] >= 0), \
+        "K6b closest chain over the 5 MB chunks differs from K1"
+    log(f"K6b closest chained over {len(tri_chunks)} chunks at 1080p: kernels {h.ms:.3f} ms, plain "
+        f"{h.plain_ms:.1f} ms, max err {h.err:.3g}; ends at K1's t")
+    del best, k1_hit
 
     h = Held()
     occ = hold_any(h, "K3", lambda a, b, t: kt.any_hit_fat4(a, b, tables, t),
@@ -1502,9 +1580,8 @@ def main() -> int:
         res = {}
         t_plain = once_ms(lambda: res.update(v=ksvgf.atrous_step_plain(rad, var, depth, nrm, step, phi)))
         out_p, w_p = res["v"]
-        torch.testing.assert_close(out_k, out_p, rtol=1e-5, atol=1e-6)
-        torch.testing.assert_close(w_k, w_p, rtol=1e-5, atol=1e-6)
         err = max(float((out_k - out_p).abs().max()), float((w_k - w_p).abs().max()))
+        assert err == 0.0, f"K4 step {step}: max error {err:.3g} against its plain version"
         ms = timed_ms(lambda: ksvgf.atrous_step(rad, var, depth, nrm, step, phi))
         b_ms, _ = bound_ms(n_pix * 48, n_pix * (25 * OPS_TAP + OPS_PIXEL))
         log(f"K4 atrous step {step}: kernel {ms:.3f} ms, plain {t_plain:.1f} ms, "
@@ -1543,16 +1620,23 @@ def main() -> int:
         k5["bound_ms"] += b_ms / 4
     k5["bound_by"] = bound_ms(k5_bytes, k5_ops)[1]
     report["atrous_bwd"] = k5
-    # K5 on a ragged 1917x1079 frame, so that every tile edge of every step
-    # is cut: max error 0, and the adjoint identity against K4.
+    # K4 and K5 on a ragged 1917x1079 frame, so that every tile edge of
+    # every step is cut: max error 0, and K5's adjoint identity against K4.
     rh, rw = 1079, 1917
     rrad = torch.rand((rh, rw, 3), device=dev, generator=gen) * 2.0
     rvar = torch.rand((rh, rw), device=dev, generator=gen) * 0.05
     rdep = 3.0 + torch.rand((rh, rw), device=dev, generator=gen) * 0.01
     rnrm = torch.nn.functional.normalize(
         torch.randn((rh, rw, 3), device=dev, generator=gen) * 0.05 + torch.tensor([0.0, 0.0, 1.0], device=dev), dim=-1)
+    def k4_err(x, v, z, n, step, phi_):
+        """K4 on (x, v, z, n) and its max error against its plain version."""
+        out_, w_ = ksvgf.atrous_step(x, v, z, n, step, phi_)
+        out_p, w_p = ksvgf.atrous_step_plain(x, v, z, n, step, phi_)
+        return out_, w_, max(float((out_ - out_p).abs().max()), float((w_ - w_p).abs().max()))
+
     for step in (1, 2, 4, 8):
-        out_r, w_r = ksvgf.atrous_step(rrad, rvar, rdep, rnrm, step, phi)
+        out_r, w_r, err4 = k4_err(rrad, rvar, rdep, rnrm, step, phi)
+        assert err4 == 0.0, f"K4 ragged step {step}: max error {err4:.3g}"
         y_r = torch.randn((rh, rw, 3), device=dev, generator=gen)
         g_r = ksvgf.atrous_step_bwd(y_r, w_r, rrad, rvar, rdep, rnrm, step, phi)
         err = float((g_r - ksvgf.atrous_step_bwd_plain(y_r, w_r, rrad, rvar, rdep, rnrm, step, phi)).abs().max())
@@ -1560,14 +1644,15 @@ def main() -> int:
         rhs = float((rrad.double() * g_r.double()).sum())
         adj = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
         assert err == 0.0 and adj <= 1e-5, f"K5 ragged step {step}: max error {err:.3g}, adjoint {adj:.3g}"
-        log(f"K5 ragged {rw}x{rh} step {step}: max err {err:.3g}, adjoint rel err {adj:.3g}")
-    # K5's build for a phi_normal other than SVGF's 128 (taken at run time).
+        log(f"K4 / K5 ragged {rw}x{rh} step {step}: max err {err4:.3g} / {err:.3g}, adjoint rel err {adj:.3g}")
+    # K4's and K5's builds for a phi_normal other than SVGF's 128 (taken at
+    # run time).
     phi64 = (phi[0], 64, phi[2])
-    _, w_r = ksvgf.atrous_step(rrad, rvar, rdep, rnrm, 2, phi64)
+    _, w_r, err4 = k4_err(rrad, rvar, rdep, rnrm, 2, phi64)
     g_r = ksvgf.atrous_step_bwd(y_r, w_r, rrad, rvar, rdep, rnrm, 2, phi64)
     err = float((g_r - ksvgf.atrous_step_bwd_plain(y_r, w_r, rrad, rvar, rdep, rnrm, 2, phi64)).abs().max())
-    assert err == 0.0, f"K5 with phi_normal 64: max error {err:.3g}"
-    log(f"K5 ragged step 2 with phi_normal 64: max err {err:.3g}")
+    assert err4 == 0.0 and err == 0.0, f"K4 / K5 with phi_normal 64: max error {err4:.3g} / {err:.3g}"
+    log(f"K4 / K5 ragged step 2 with phi_normal 64: max err {err4:.3g} / {err:.3g}")
     del rrad, rvar, rdep, rnrm, out_r, w_r, y_r, g_r
     # Through autograd on the card: the step stays in the graph, and its
     # backward is K5.

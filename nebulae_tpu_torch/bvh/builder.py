@@ -1,9 +1,9 @@
 """Binned-SAH BVH2 builder with a skip-link flat layout (numpy).
 
 The port's own copy of `nebulae_tpu/bvh/builder.py`: a test checks that
-both give the same tree bit for bit.  This is the CPU path; on the GPU the
-engine builds the same layout with the native builder
-(`bvh/cbuilder.py`, `csrc/bvh_builder.cpp`).
+both give the same tree bit for bit.  The engine builds the same layout
+with the C++ builder on both devices (`bvh/cbuilder.py`,
+`csrc/bvh_builder.cpp`); this one builds the empty scene's tree.
 
 Flat arrays (N nodes, T triangles, reordered):
   node_lo, node_hi  [N, 3] f32   node AABBs

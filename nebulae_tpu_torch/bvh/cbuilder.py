@@ -1,9 +1,11 @@
 """ctypes wrapper for the native BVH builder (csrc/bvh_builder.cpp).
 
-The builder is host code compiled by nvcc with the kernels
-(kernels/build.py), so it exists where the GPU does.  `build_bvh_for`
-picks it for CUDA and the numpy builder for the CPU; both produce the
-layout of `bvh/builder.py`.
+The builder is host code, compiled by the host C++ compiler with the JAX
+package's flags into a library of its own (kernels/build.py::host_native),
+so the CPU and the GPU path build one tree, and it is the tree that JAX's
+native builder gives on the same host.  `build_bvh_for` takes it on every
+device; the numpy builder (bvh/builder.py, the same layout) stays for the
+empty scene.  A failed compiler run raises.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import ctypes
 import numpy as np
 
 from nebulae_tpu_torch.bvh.builder import MAX_LEAF, FlatBVH, build_bvh
-from nebulae_tpu_torch.kernels.build import native
+from nebulae_tpu_torch.kernels.build import host_native
 
 
 def build_bvh_native(tri_pos: np.ndarray, max_leaf: int = MAX_LEAF) -> FlatBVH:
@@ -36,7 +38,7 @@ def build_bvh_native(tri_pos: np.ndarray, max_leaf: int = MAX_LEAF) -> FlatBVH:
     def p(a):
         return ctypes.c_void_p(a.ctypes.data)
 
-    n = native().lib.nebulae_build_bvh(
+    n = host_native().lib.nebulae_build_bvh(
         p(tri), t, max_leaf, max_nodes, p(out["node_lo"]), p(out["node_hi"]),
         p(out["node_first"]), p(out["node_count"]), p(out["node_skip"]),
         p(out["node_right"]), p(tri_index),
@@ -47,7 +49,9 @@ def build_bvh_native(tri_pos: np.ndarray, max_leaf: int = MAX_LEAF) -> FlatBVH:
 
 
 def build_bvh_for(device, tri_pos: np.ndarray, max_leaf: int = MAX_LEAF) -> FlatBVH:
-    """The native builder for CUDA devices, the numpy builder for the CPU."""
-    if getattr(device, "type", str(device)) == "cuda":
-        return build_bvh_native(tri_pos, max_leaf)
-    return build_bvh(tri_pos, max_leaf)
+    """The tree a Renderer on `device` (CPU or CUDA) walks: the C++ builder
+    on both."""
+    kind = getattr(device, "type", str(device).split(":")[0])
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return build_bvh_native(tri_pos, max_leaf)

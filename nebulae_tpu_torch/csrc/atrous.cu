@@ -19,15 +19,22 @@
 // the centre's 1/vscale, as the Pallas kernel does in each mode).  Taps
 // outside the image have g = 0 in the Pallas kernel and are skipped here.
 //
-// K4's design: one thread per output pixel, reading its 25 taps straight
-// from device memory (row-major [H, W, C] inputs).  The Pallas kernel staged
-// 40-row halo blocks in VMEM because the TPU has no cache; here the taps of
-// neighbouring threads overlap and are served by L1/L2, so the DRAM traffic
-// is about one read of each input and one write of each output.
-// Luminance, clamped depth and vscale are computed in the kernel instead of
-// in a separate packing pass.  Bound: DRAM bytes (48 per pixel) and f32 work
-// (~25 taps x ~30 ops) are both far below what its load instructions cost:
-// it is bound by L1/texture load throughput.
+// K4's design (atrous_fwd_kernel) is K5's, applied to the forward: a block
+// takes 32x8 outputs of one residue class of the step and stages their
+// 36x12 neighbourhood's own terms once in shared memory (r, g, b,
+// luminance and clamped depth, normal: two 16-byte words a pixel, 13,824
+// bytes); the 25 taps then run out of shared memory, two loads a tap, and
+// each output's centre takes 1/vscale from its own variance.  The design it
+// replaces ran one thread per pixel and read every tap's radiance, depth
+// and normal from device memory (7 loads and a luminance a tap), with the
+// phi_normal power as a loop at run time.  Its byte bound is 0.030 ms (48
+// bytes per pixel over 3.35 TB/s); what is left per tap is issue slots for
+// ~30 f32 operations (two expf, the power), as in K5.  Measured (chip_smoke.py
+// --ab, 1080p, mean of steps 1, 2, 4, 8; H100 80GB HBM3 at 700 W, one
+// run): 0.409 ms -> 0.240 with the tile and the power unrolled, -> 0.186
+// with each staged pixel as two 16-byte words (two shared loads a tap
+// instead of eight).  32 registers and 13,824 bytes of shared memory a
+// block of 256 threads: 64 of 64 warps per SM.
 //
 // K5's design (atrous_bwd_kernel below) stages each pixel's own terms once
 // in a shared-memory tile of its residue subgrid and runs the taps out of
@@ -52,8 +59,12 @@ namespace {
 constexpr int kThreadsX = 32;
 constexpr int kThreadsY = 8;
 
+__device__ __forceinline__ float lum_rgb(float r, float g, float b) {
+  return (r * 0.2126f + g * 0.7152f) + b * 0.0722f;
+}
+
 __device__ __forceinline__ float lum_of(const float* __restrict__ c) {
-  return (__ldg(c) * 0.2126f + __ldg(c + 1) * 0.7152f) + __ldg(c + 2) * 0.0722f;
+  return lum_rgb(__ldg(c), __ldg(c + 1), __ldg(c + 2));
 }
 
 __device__ __forceinline__ float pow_static(float x, int n) {
@@ -72,19 +83,66 @@ __device__ __forceinline__ float pow_static(float x, int n) {
   return acc;
 }
 
-__global__ void atrous_fwd_kernel(const float* __restrict__ rad, const float* __restrict__ var,
-                                  const float* __restrict__ depth,
-                                  const float* __restrict__ nrm, int h, int w, int step,
-                                  float phi_color, int phi_normal, float inv_phi_z,
-                                  float* __restrict__ out, float* __restrict__ sum_w_out) {
+// Both kernels tile the residue subgrid of their step: the taps of step s
+// around pixel (x, y) fall on pixels congruent to (x, y) mod s, so a block
+// takes kThreadsX x kThreadsY outputs spaced s apart, one residue class, and
+// stages their (kThreadsX + 4) x (kThreadsY + 4) neighbourhood.  Each staged
+// pixel's own terms are computed once, and the 25-tap stencil then reads
+// them from shared memory, with the arithmetic and dy-major order of the
+// plain version, so each kernel equals it exactly.  Blocks are numbered
+// residue first, so the s*s blocks that share a region of the image (and
+// its cache sectors) run side by side.  kPhiNormal > 0 fixes phi_normal at
+// compile time, so that pow_static unrolls into its squarings; 0 takes it
+// at run time.  SVGF's phi_normal is 128 unless a caller sets another.
+constexpr int kHalo = 2;
+constexpr int kDefaultPhiNormal = 128;
+constexpr int kTileW = kThreadsX + 2 * kHalo;
+constexpr int kTileH = kThreadsY + 2 * kHalo;
+constexpr int kTilePts = kTileW * kTileH;
+
+// The residue class and subgrid tile of a block: (rx, ry) the residue,
+// (sx0, sy0) the subgrid coordinates of the tile's first output.
+struct SubgridTile {
+  int rx, ry, sx0, sy0;
+};
+
+__device__ __forceinline__ SubgridTile subgrid_tile(int w, int step) {
+  int classes = step * step;
+  int res = blockIdx.x % classes;
+  int tile = blockIdx.x / classes;
+  int tiles_x = ((w + step - 1) / step + kThreadsX - 1) / kThreadsX;
+  return {res % step, res / step, (tile % tiles_x) * kThreadsX, (tile / tiles_x) * kThreadsY};
+}
+
+template <int kPhiNormal>
+__global__ void __launch_bounds__(kThreadsX * kThreadsY)
+atrous_fwd_kernel(const float* __restrict__ rad, const float* __restrict__ var,
+                  const float* __restrict__ depth, const float* __restrict__ nrm, int h, int w,
+                  int step, float phi_color, int phi_normal, float inv_phi_z,
+                  float* __restrict__ out, float* __restrict__ sum_w_out) {
   const float b3[5] = {1.0f / 16.0f, 1.0f / 4.0f, 3.0f / 8.0f, 1.0f / 4.0f, 1.0f / 16.0f};
-  int x = blockIdx.x * blockDim.x + threadIdx.x;
-  int y = blockIdx.y * blockDim.y + threadIdx.y;
+  // A staged pixel as two 16-byte words, so that a tap is two shared loads:
+  // (r, g, b, luminance) and (clamped depth, normal xyz).
+  __shared__ float4 s_col[kTilePts], s_geo[kTilePts];
+  const SubgridTile st = subgrid_tile(w, step);
+  for (int p = threadIdx.y * kThreadsX + threadIdx.x; p < kTilePts; p += kThreadsX * kThreadsY) {
+    int px = st.rx + step * (st.sx0 + p % kTileW - kHalo);
+    int py = st.ry + step * (st.sy0 + p / kTileW - kHalo);
+    if (px < 0 || px >= w || py < 0 || py >= h) continue;  // never read: outside the image
+    int64_t q = static_cast<int64_t>(py) * w + px;
+    float r = __ldg(rad + 3 * q), g = __ldg(rad + 3 * q + 1), b = __ldg(rad + 3 * q + 2);
+    s_col[p] = make_float4(r, g, b, lum_rgb(r, g, b));
+    s_geo[p] = make_float4(fminf(__ldg(depth + q), 1e8f), __ldg(nrm + 3 * q), __ldg(nrm + 3 * q + 1),
+                           __ldg(nrm + 3 * q + 2));
+  }
+  __syncthreads();
+  int x = st.rx + step * (st.sx0 + threadIdx.x);
+  int y = st.ry + step * (st.sy0 + threadIdx.y);
   if (x >= w || y >= h) return;
   int64_t p = static_cast<int64_t>(y) * w + x;
-  float lum0 = lum_of(rad + 3 * p);
-  float z0 = fminf(__ldg(depth + p), 1e8f);
-  float n0x = __ldg(nrm + 3 * p), n0y = __ldg(nrm + 3 * p + 1), n0z = __ldg(nrm + 3 * p + 2);
+  int c = (threadIdx.y + kHalo) * kTileW + threadIdx.x + kHalo;
+  const float lum0 = s_col[c].w;
+  const float4 g0 = s_geo[c];
   float vs0 = fmaxf(phi_color * sqrtf(fmaxf(__ldg(var + p), 1e-8f)), 1e-6f);
   float inv_vs0 = 1.0f / fmaxf(vs0, 1e-9f);
   float sr = 0.0f, sg = 0.0f, sb = 0.0f, sw = 0.0f;
@@ -94,21 +152,19 @@ __global__ void atrous_fwd_kernel(const float* __restrict__ rad, const float* __
     for (int dx = -2; dx <= 2; ++dx) {
       int xx = x + dx * step;
       if (xx < 0 || xx >= w) continue;
-      int64_t q = static_cast<int64_t>(yy) * w + xx;
+      const float4 tc = s_col[c + dy * kTileW + dx], tg = s_geo[c + dy * kTileW + dx];
       // Indexed by |offset| as in the JAX package (centre 1/16, outer 3/8).
       float k = b3[abs(dy)] * b3[abs(dx)];
-      float zt = fminf(__ldg(depth + q), 1e8f);
-      float ndot = (n0x * __ldg(nrm + 3 * q) + n0y * __ldg(nrm + 3 * q + 1)) +
-                   n0z * __ldg(nrm + 3 * q + 2);
-      float wn = pow_static(fminf(fmaxf(ndot, 0.0f), 1.0f), phi_normal);
-      float wz = expf(-fabsf(z0 - zt) * inv_phi_z);
-      const float* c = rad + 3 * q;
-      float dl = fabsf(lum0 - lum_of(c));
+      float ndot = (g0.y * tg.y + g0.z * tg.z) + g0.w * tg.w;
+      float wn = pow_static(fminf(fmaxf(ndot, 0.0f), 1.0f),
+                            kPhiNormal > 0 ? kPhiNormal : phi_normal);
+      float wz = expf(-fabsf(g0.x - tg.x) * inv_phi_z);
+      float dl = fabsf(lum0 - tc.w);
       float wl = expf(-dl * inv_vs0);
       float wt = ((k * wz) * wn) * wl;
-      sr = sr + __ldg(c) * wt;
-      sg = sg + __ldg(c + 1) * wt;
-      sb = sb + __ldg(c + 2) * wt;
+      sr = sr + tc.x * wt;
+      sg = sg + tc.y * wt;
+      sb = sb + tc.z * wt;
       sw = sw + wt;
     }
   }
@@ -123,25 +179,8 @@ __device__ __forceinline__ float vscale_of(float var, float phi_color) {
   return fmaxf(phi_color * sqrtf(fmaxf(var, 1e-8f)), 1e-6f);
 }
 
-// K5 tiles the residue subgrid of its step: the taps of step s around
-// pixel (x, y) fall on pixels congruent to (x, y) mod s, so a block takes
-// kThreadsX x kThreadsY outputs spaced s apart, one residue class, and
-// stages their (kThreadsX + 4) x (kThreadsY + 4) neighbourhood.  Each staged
-// pixel's own terms are computed once: g = gbar / max(sum_w, 1e-4), its
-// luminance, clamped depth, normal and tap vscale max(vscale, 1e-9).  The
-// 25-tap transposed stencil then reads them from shared memory, with the
-// arithmetic and dy-major order of the plain version, so K5 equals it
-// exactly.  Blocks are numbered residue first, so the s*s blocks that share
-// a region of the image (and its cache sectors) run side by side.
-// kPhiNormal > 0 fixes phi_normal at compile time, so that pow_static
-// unrolls into its squarings; 0 takes it at run time.  SVGF's phi_normal
-// is 128 unless a caller sets another.
-constexpr int kHalo = 2;
-constexpr int kDefaultPhiNormal = 128;
-constexpr int kTileW = kThreadsX + 2 * kHalo;
-constexpr int kTileH = kThreadsY + 2 * kHalo;
-constexpr int kTilePts = kTileW * kTileH;
-
+// K5's staged terms per pixel: g = gbar / max(sum_w, 1e-4), its luminance,
+// clamped depth, normal and tap vscale max(vscale, 1e-9).
 template <int kPhiNormal>
 __global__ void __launch_bounds__(kThreadsX * kThreadsY)
 atrous_bwd_kernel(const float* __restrict__ gbar, const float* __restrict__ sum_w,
@@ -153,16 +192,10 @@ atrous_bwd_kernel(const float* __restrict__ gbar, const float* __restrict__ sum_
   __shared__ float s_gr[kTilePts], s_gg[kTilePts], s_gb[kTilePts], s_lum[kTilePts];
   __shared__ float s_z[kTilePts], s_nx[kTilePts], s_ny[kTilePts], s_nz[kTilePts];
   __shared__ float s_vs[kTilePts];
-  int classes = step * step;
-  int res = blockIdx.x % classes;
-  int tile = blockIdx.x / classes;
-  int tiles_x = ((w + step - 1) / step + kThreadsX - 1) / kThreadsX;
-  int rx = res % step, ry = res / step;
-  // Subgrid coordinates of the tile's first output.
-  int sx0 = (tile % tiles_x) * kThreadsX, sy0 = (tile / tiles_x) * kThreadsY;
+  const SubgridTile st = subgrid_tile(w, step);
   for (int p = threadIdx.y * kThreadsX + threadIdx.x; p < kTilePts; p += kThreadsX * kThreadsY) {
-    int px = rx + step * (sx0 + p % kTileW - kHalo);
-    int py = ry + step * (sy0 + p / kTileW - kHalo);
+    int px = st.rx + step * (st.sx0 + p % kTileW - kHalo);
+    int py = st.ry + step * (st.sy0 + p / kTileW - kHalo);
     if (px < 0 || px >= w || py < 0 || py >= h) continue;  // never read: outside the image
     int64_t q = static_cast<int64_t>(py) * w + px;
     float norm = fmaxf(__ldg(sum_w + q), 1e-4f);
@@ -177,8 +210,8 @@ atrous_bwd_kernel(const float* __restrict__ gbar, const float* __restrict__ sum_
     s_vs[p] = fmaxf(vscale_of(__ldg(var + q), phi_color), 1e-9f);
   }
   __syncthreads();
-  int x = rx + step * (sx0 + threadIdx.x);
-  int y = ry + step * (sy0 + threadIdx.y);
+  int x = st.rx + step * (st.sx0 + threadIdx.x);
+  int y = st.ry + step * (st.sy0 + threadIdx.y);
   if (x >= w || y >= h) return;
   int c = (threadIdx.y + kHalo) * kTileW + threadIdx.x + kHalo;
   float lum0 = s_lum[c], z0 = s_z[c];
@@ -210,6 +243,13 @@ atrous_bwd_kernel(const float* __restrict__ gbar, const float* __restrict__ sum_
   grad[3 * q + 2] = sb;
 }
 
+// One block per residue class per subgrid tile (both kernels).
+inline int subgrid_blocks(int h, int w, int step) {
+  int tiles_x = ((w + step - 1) / step + kThreadsX - 1) / kThreadsX;
+  int tiles_y = ((h + step - 1) / step + kThreadsY - 1) / kThreadsY;
+  return step * step * tiles_x * tiles_y;
+}
+
 }  // namespace
 
 extern "C" {
@@ -219,8 +259,9 @@ int nb_atrous_fwd(const float* rad, const float* var, const float* depth, const 
                   float* out, float* sum_w, void* stream) {
   if (h > 0 && w > 0) {
     dim3 block(kThreadsX, kThreadsY);
-    dim3 grid((w + kThreadsX - 1) / kThreadsX, (h + kThreadsY - 1) / kThreadsY);
-    atrous_fwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+    auto kernel = phi_normal == kDefaultPhiNormal ? atrous_fwd_kernel<kDefaultPhiNormal>
+                                                  : atrous_fwd_kernel<0>;
+    kernel<<<subgrid_blocks(h, w, step), block, 0, static_cast<cudaStream_t>(stream)>>>(
         rad, var, depth, nrm, h, w, step, phi_color, phi_normal, inv_phi_z, out, sum_w);
   }
   return static_cast<int>(cudaGetLastError());
@@ -230,13 +271,10 @@ int nb_atrous_bwd(const float* gbar, const float* sum_w, const float* rad, const
                   const float* depth, const float* nrm, int h, int w, int step, float phi_color,
                   int phi_normal, float inv_phi_z, float* grad, void* stream) {
   if (h > 0 && w > 0) {
-    // One block per residue class per subgrid tile (atrous_bwd_kernel).
-    int tiles_x = ((w + step - 1) / step + kThreadsX - 1) / kThreadsX;
-    int tiles_y = ((h + step - 1) / step + kThreadsY - 1) / kThreadsY;
     dim3 block(kThreadsX, kThreadsY);
     auto kernel = phi_normal == kDefaultPhiNormal ? atrous_bwd_kernel<kDefaultPhiNormal>
                                                   : atrous_bwd_kernel<0>;
-    kernel<<<step * step * tiles_x * tiles_y, block, 0, static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<subgrid_blocks(h, w, step), block, 0, static_cast<cudaStream_t>(stream)>>>(
         gbar, sum_w, rad, var, depth, nrm, h, w, step, phi_color, phi_normal, inv_phi_z, grad);
   }
   return static_cast<int>(cudaGetLastError());

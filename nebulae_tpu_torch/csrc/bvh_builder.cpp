@@ -1,10 +1,11 @@
 // Native binned-SAH BVH builder: the port's own copy of native/bvh_builder.cpp.
 //
-// Host code.  It is compiled by nvcc in the same build step as the CUDA
-// kernels (nebulae_tpu_torch/kernels/build.py) and produces the flat
-// skip-link layout documented in nebulae_tpu_torch/bvh/builder.py; the
-// engine uses it on the GPU path, where scenes reach ~139k triangles and
-// the numpy builder would take minutes.
+// Host code.  It is compiled by the host C++ compiler with the flags of
+// native/Makefile (nebulae_tpu_torch/kernels/build.py::build_host) and
+// produces the flat skip-link layout documented in
+// nebulae_tpu_torch/bvh/builder.py.  The engine uses it on the CPU and the
+// GPU path alike: with those flags its tree is the JAX package's native
+// tree on the same host, bit for bit.
 
 #include <algorithm>
 #include <cmath>

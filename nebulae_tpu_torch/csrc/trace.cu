@@ -38,8 +38,9 @@
 // coherence so that neighbouring threads walk the same rows.  Warp divergence
 // is the known cost left for a later optimisation.
 //
-// K2 (combo_fat4_kernel and combo_fat4_group_kernel, and so the paged and
-// SlotRange builds) has its own design, below the K1 kernel.  On the bench
+// K1 (closest_fat4_kernel) and K2 (combo_fat4_kernel and
+// combo_fat4_group_kernel), and so their paged and SlotRange builds, share
+// a design of their own, described above K1's kernel.  For K2: on the bench
 // scene (~139k triangles, 1080p) it is bound by the latency of each ray's
 // chain of dependent row loads and by the instructions a visit issues, not
 // by bytes or FLOPs: its bound is ~0.04 ms against ~1.1 ms at 2^21 rays.  A
@@ -71,6 +72,12 @@
 // combo_fat4_kernel uses 78 registers and a 512-byte stack frame (the
 // 128-entry stack): 24 of 64 warps per SM; the group kernel 84 registers:
 // 20 warps.
+// K1 took the wide loads, the registers and the leaf loop x4 (it walks ~2M
+// primary rays a frame, so it keeps one thread per ray): 0.500 -> 0.329 ms
+// on the 1080p primary rays (chip_smoke.py --ab, same card and run), 66
+// registers and the 512-byte stack: 28 of 64 warps per SM.  Tried and
+// dropped: one warp per 8x4 pixel tile instead of 32 rays of a row (0.350
+// against 0.333).
 //
 // Build with --fmad=false: the plain PyTorch version rounds after every
 // multiply and add, and nvcc would otherwise contract a*b-c into an FMA.
@@ -180,22 +187,6 @@ __device__ __forceinline__ bool near_first(int om, const bool* pos) {
   return pos[om >> 1] == ((om & 1) != 0);
 }
 
-// Push the hit inner slots, near pair's near child on top (K1/K2 order).
-__device__ __forceinline__ void push_near_first(int* stack, int& sp, const Fields& f,
-                                                const bool* ok, const bool* pos) {
-  bool ns = near_first(f.om_s, pos);
-  bool nl = near_first(f.om_l, pos);
-  bool nr = near_first(f.om_r, pos);
-  int ln = nl ? 0 : 1, lf = nl ? 1 : 0;
-  int rn = nr ? 2 : 3, rf = nr ? 3 : 2;
-  int order[4] = {ns ? rf : lf, ns ? rn : ln, ns ? lf : rf, ns ? ln : rn};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int k = order[i];
-    if (ok[k]) stack[sp++] = f.meta[k];
-  }
-}
-
 __device__ __forceinline__ bool is_leaf(int field) {
   return field > 0 && field <= kMaxLeafField;
 }
@@ -214,69 +205,16 @@ struct SlotRange {
   __device__ __forceinline__ int row(int first) const { return first - lo; }
 };
 
-template <class Gate>
-__global__ void closest_fat4_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                                    const float* __restrict__ tmax, int tmax_stride,
-                                    const float* __restrict__ nodes,
-                                    const float* __restrict__ tris, int G, int n,
-                                    float* __restrict__ t_out, int32_t* __restrict__ tri_out,
-                                    float* __restrict__ u_out, float* __restrict__ v_out,
-                                    Gate gate) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Ray r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1], d[3 * i + 2]);
-  float bt = tmax[i * tmax_stride];
-  int btri = -1;
-  float bu = 0.0f, bv = 0.0f;
-  if (!is_dead(r.ox, r.dx, r.dy, r.dz) && bt > kEps) {
-    int stack[kStackMax];
-    int sp = 0;
-    stack[sp++] = 0;
-    while (sp > 0) {
-      const float* row = nodes + static_cast<int64_t>(stack[--sp]) * kNodeStride;
-      bool box[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) box[k] = slab(row, k, r, bt);
-      Fields f = decode(row);
-      for (int k = 0; k < 4; ++k) {
-        if (!(box[k] && is_leaf(f.field[k]) && gate.resident(f.meta[k]))) continue;
-        int first = gate.row(f.meta[k]);
-        for (int s = 0; s < f.field[k]; ++s) {
-          const float* slot = tris + (static_cast<int64_t>(first) + s) * G * kTriStride;
-          for (int g = 0; g < G; ++g) {
-            const float* tv = slot + g * kTriStride;
-            float t, u, v;
-            if (moller(tv, r, bt, t, u, v)) {
-              bt = t;
-              btri = __float_as_int(__ldg(tv + 9));
-              bu = u;
-              bv = v;
-            }
-          }
-        }
-      }
-      bool ok[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) ok[k] = box[k] && f.field[k] >= kInnerField;
-      push_near_first(stack, sp, f, ok, r.pos);
-    }
-  }
-  t_out[i] = btri >= 0 ? bt : __int_as_float(0x7f800000);
-  tri_out[i] = btri;
-  u_out[i] = bu;
-  v_out[i] = bv;
-}
-
-// K2, the fused shadow+bounce walk, redesigned for Hopper (see the head of
-// this file for what bounds it and what was measured).  It visits the same
-// nodes and tests the same triangles in the same order as the walks above,
-// with the same arithmetic, so tri and occ stay equal to
-// shadow_closest_fat4_plain bit for bit.  What changes is how a visit reads
-// memory: a 128-byte fat4 row is 8 16-byte loads issued together right
-// after the pop, and a 40-byte triangle 5 8-byte loads, made once for both
-// rays (the wrapper checks the alignment these loads need).  The visit's
-// boxes, hit masks and encodings stay in registers: bit masks and selects,
-// no arrays indexed at run time.
+// K1 and K2, redesigned for Hopper (see the head of this file for what
+// bounds them and what was measured), visit the same nodes and test the
+// same triangles in the same order as the plain walks, with the same
+// arithmetic, so tri (and K2's occ) stay equal to the plain versions bit
+// for bit.  What changes is how a visit reads memory: a 128-byte fat4 row
+// is 8 16-byte loads issued together right after the pop, and a 40-byte
+// triangle 5 8-byte loads (made once for both of K2's rays; the wrappers
+// check the alignment these loads need).  The visit's boxes, hit masks and
+// encodings stay in registers: bit masks and selects, no arrays indexed at
+// run time.
 struct Box {
   float lx, ly, lz, hx, hy, hz;
 };
@@ -332,8 +270,8 @@ __device__ __forceinline__ bool near_first_bits(int om, unsigned pos) {
   return ((pos >> (om >> 1)) & 1u) == static_cast<unsigned>(om & 1);
 }
 
-// push_near_first() for K2: the slots in the `inner` mask, by the order meta
-// om and the sign bits pos, from encodings in registers.
+// Push the slots in the `inner` mask, the near pair's near child on top, by
+// the order meta om and the sign bits pos, from encodings in registers.
 __device__ __forceinline__ void push_inner(int* stack, int& sp, const int (&enc)[4],
                                            unsigned inner, int om, unsigned pos) {
   bool ns = near_first_bits(om / 36, pos);
@@ -347,6 +285,84 @@ __device__ __forceinline__ void push_inner(int* stack, int& sp, const int (&enc)
     int k = order[m];
     if ((inner >> k) & 1u) stack[sp++] = pick(k, enc[0], enc[1], enc[2], enc[3]) >> 5;
   }
+}
+
+// K1, the closest-hit walk (and so its paged build K6a, its SlotRange build
+// K6b and the subtree chains K6c), redesigned for Hopper with K2's levers:
+// a fat4 row as 8 16-byte loads right after the pop, a triangle as 5 8-byte
+// loads, boxes, masks and encodings in registers (no array indexed at run
+// time, so nothing of a visit goes to local memory), and the leaf loop
+// unrolled by 4.  It visits the same nodes and tests the same triangles in
+// the same order with the same arithmetic as the plain walk, so tri, t, u
+// and v stay equal to closest_hit_fat4_plain.  A 1080p frame gives it ~2M
+// primary rays, far above the count where K2's group kernel stops winning
+// (~590k), so it keeps one thread per ray.
+template <class Gate>
+__global__ void closest_fat4_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                                    const float* __restrict__ tmax, int tmax_stride,
+                                    const float* __restrict__ nodes,
+                                    const float* __restrict__ tris, int G, int n,
+                                    float* __restrict__ t_out, int32_t* __restrict__ tri_out,
+                                    float* __restrict__ u_out, float* __restrict__ v_out,
+                                    Gate gate) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Ray r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1], d[3 * i + 2]);
+  float bt = tmax[i * tmax_stride];
+  int btri = -1;
+  float bu = 0.0f, bv = 0.0f;
+  if (!is_dead(r.ox, r.dx, r.dy, r.dz) && bt > kEps) {
+    int stack[kStackMax];
+    const float4* rows = reinterpret_cast<const float4*>(nodes);
+    unsigned pos = static_cast<unsigned>(r.pos[0]) | static_cast<unsigned>(r.pos[1]) << 1 |
+                   static_cast<unsigned>(r.pos[2]) << 2;
+    int sp = 0;
+    stack[sp++] = 0;
+    while (sp > 0) {
+      const float4* row = rows + static_cast<int64_t>(stack[--sp]) * (kNodeStride / 4);
+      float4 q0 = __ldg(row), q1 = __ldg(row + 1), q2 = __ldg(row + 2), q3 = __ldg(row + 3);
+      float4 q4 = __ldg(row + 4), q5 = __ldg(row + 5), q6 = __ldg(row + 6), q7 = __ldg(row + 7);
+      const Box box[4] = {{q0.x, q0.y, q0.z, q0.w, q1.x, q1.y},
+                          {q1.z, q1.w, q2.x, q2.y, q2.z, q2.w},
+                          {q3.x, q3.y, q3.z, q3.w, q4.x, q4.y},
+                          {q4.z, q4.w, q5.x, q5.y, q5.z, q5.w}};
+      const int enc[4] = {__float_as_int(q6.x), __float_as_int(q6.y), __float_as_int(q6.z),
+                          __float_as_int(q6.w)};
+      // Every box is tested against the cap from before the visit's leaves.
+      unsigned leaves = 0, inner = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        bool hit = slab_box(box[k], r, bt);
+        int field = enc[k] & 31;
+        if (hit && is_leaf(field) && gate.resident(enc[k] >> 5)) leaves |= 1u << k;
+        if (hit && field >= kInnerField) inner |= 1u << k;
+      }
+      // Leaf slots in slot order 0..3, as the plain walk takes them.
+      while (leaves) {
+        int k = __ffs(leaves) - 1;
+        leaves &= leaves - 1;
+        int e = pick(k, enc[0], enc[1], enc[2], enc[3]);
+        const float* slot = tris + static_cast<int64_t>(gate.row(e >> 5)) * G * kTriStride;
+        int count = (e & 31) * G;
+#pragma unroll 4
+        for (int j = 0; j < count; ++j) {
+          Tri tr = load_tri(slot + j * kTriStride);
+          float t, u, v;
+          if (moller_tri(tr, r, bt, t, u, v)) {
+            bt = t;
+            btri = tr.id;
+            bu = u;
+            bv = v;
+          }
+        }
+      }
+      push_inner(stack, sp, enc, inner, __float_as_int(q7.x), pos);
+    }
+  }
+  t_out[i] = btri >= 0 ? bt : __int_as_float(0x7f800000);
+  tri_out[i] = btri;
+  u_out[i] = bu;
+  v_out[i] = bv;
 }
 
 template <class Gate>

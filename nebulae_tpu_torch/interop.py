@@ -11,13 +11,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nebulae_tpu_torch.bvh.builder import FlatBVH
 from nebulae_tpu_torch.config import SUN_LEAVES, SunLight
 from nebulae_tpu_torch.core.scene import to_tensors
 from nebulae_tpu_torch.engine.train import TRAINABLE_SCENE_KEYS
 from nebulae_tpu_torch.kernels import trace as kt
 
-_BVH_KEYS = ("node_lo", "node_hi", "node_first", "node_count", "node_skip", "node_right", "tri_index")
 _HIST_KEYS = ("radiance", "depth", "normal", "moments", "histlen", "prev_viewproj", "prev_eye")
 
 
@@ -33,12 +31,6 @@ def _tensor(x, device):
 def sun_from_arrays(direction, radiance, tan_half_angle, sky_color, device) -> SunLight:
     """The four SunLight leaves (numpy) -> a SunLight on `device`."""
     return SunLight(*(_tensor(x, device) for x in (direction, radiance, tan_half_angle, sky_color)))
-
-
-def bvh_from_arrays(arrays) -> FlatBVH:
-    """A FlatBVH or its `device_arrays()` dict (numpy) -> the port's FlatBVH."""
-    get = arrays.get if isinstance(arrays, dict) else (lambda k: getattr(arrays, k))
-    return FlatBVH(**{k: np.asarray(get(k)) for k in _BVH_KEYS})
 
 
 def frame_state_from_arrays(state: dict, device) -> dict:

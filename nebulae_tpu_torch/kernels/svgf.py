@@ -155,6 +155,8 @@ def atrous_step_fwd(radiance, variance, depth, normal, step: int, phi):
     h, w = radiance.shape[:2]
     dev = radiance.device
     _check(((radiance, 3), (variance, 1), (depth, 1), (normal, 3)), h, w, dev)
+    if int(step) < 1:
+        raise ValueError(f"a-trous step must be >= 1, got {step}")
     if dev.type == "cpu":
         return atrous_step_plain(radiance, variance, depth, normal, step, phi)
     out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)

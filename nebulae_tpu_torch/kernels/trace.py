@@ -814,11 +814,11 @@ def _check_tables(tables, dev, nodes_key="fat4nodes"):
 
 
 def _check_wide_loads(tables):
-    """K2 reads a fat4 row as 16-byte loads and a triangle as 8-byte loads:
-    a table whose start is not so aligned (a view at an odd offset) is
-    refused rather than read misaligned."""
+    """K1 and K2 read a fat4 row as 16-byte loads and a triangle as 8-byte
+    loads: a table whose start is not so aligned (a view at an odd offset)
+    is refused rather than read misaligned."""
     if tables["fat4nodes"].data_ptr() % 16 or tables["tris"].data_ptr() % 8:
-        raise ValueError("fat4nodes must be 16-byte and tris 8-byte aligned for the fused walk's wide loads")
+        raise ValueError("fat4nodes must be 16-byte and tris 8-byte aligned for the fat4 walks' wide loads")
 
 
 def _cap_arg(t_max, n, dev):
@@ -866,13 +866,18 @@ def _hit_out(n, dev):
     }
 
 
-def _closest(entry, counter, plain, o, d, tables, t_max, nodes_key="fat4nodes", gate=()):
+def _closest(entry, counter, plain, o, d, tables, t_max, nodes_key="fat4nodes", gate=(),
+             family_check=None):
     """Launch a closest-hit kernel (C entry `entry`, slot gate args after
     the ray count) and add one to counter.launches; CPU tensors run
-    `plain()`.  No rays, or a scene without triangles, give miss records
-    and launch nothing."""
+    `plain()`.  `family_check(tables)` is the kernel family's own check of
+    the tables.  No rays, or a scene without triangles, give miss records
+    and launch nothing.  While counter.record is a list, each launch
+    appends its rays and cap to it."""
     n, dev = _check_rays(o, d)
     _check_tables(tables, dev, nodes_key)
+    if family_check is not None:
+        family_check(tables)
     if not _use_kernel(dev):
         return plain()
     if n == 0 or tables[nodes_key].shape[0] == 0:
@@ -886,6 +891,7 @@ def _closest(entry, counter, plain, o, d, tables, t_max, nodes_key="fat4nodes", 
         _ptr(out["v"]), _stream(),
     ), entry)
     counter.launches += 1
+    _record(counter, o, d, t_max)
     return out
 
 
@@ -932,10 +938,14 @@ def _combo(entry, counter, plain, o, b, l, tables, t_max_b, t_max_l, nodes_key="
         _ptr(hit["tri"]), _ptr(hit["u"]), _ptr(hit["v"]), _ptr(occ), _stream(),
     ), entry)
     counter.launches += 1
-    if counter.record is not None:
-        counter.record.append(tuple(x.clone() if torch.is_tensor(x) else x
-                                    for x in (o, b, l, t_max_b, t_max_l)))
+    _record(counter, o, b, l, t_max_b, t_max_l)
     return hit, occ
+
+
+def _record(counter, *inputs):
+    """Append a launch's inputs to counter.record while it is a list."""
+    if counter.record is not None:
+        counter.record.append(tuple(x.clone() if torch.is_tensor(x) else x for x in inputs))
 
 
 def combo_group_rays() -> int:
@@ -950,7 +960,8 @@ def combo_group_rays() -> int:
 def closest_hit_fat4(o, d, tables: dict, t_max=float("inf")):
     """K1: closest hit over the fat4 tables -> dict(t, tri, u, v)."""
     return _closest("nb_closest_fat4", closest_hit_fat4,
-                    lambda: closest_hit_fat4_plain(o, d, tables, t_max), o, d, tables, t_max)
+                    lambda: closest_hit_fat4_plain(o, d, tables, t_max), o, d, tables, t_max,
+                    family_check=_check_wide_loads)
 
 
 def any_hit_fat4(o, d, tables: dict, t_max=float("inf")):
@@ -976,7 +987,8 @@ def shadow_closest_fat4(o, b, l, tables: dict, t_max_b=float("inf"), t_max_l=flo
 def closest_hit_fat4_paged(o, d, tables: dict, t_max=float("inf")):
     """K6a closest: K1 over the paged route's table."""
     return _closest("nb_closest_fat4", closest_hit_fat4_paged,
-                    lambda: closest_hit_fat4_plain(o, d, tables, t_max), o, d, tables, t_max)
+                    lambda: closest_hit_fat4_plain(o, d, tables, t_max), o, d, tables, t_max,
+                    family_check=_check_wide_loads)
 
 
 def any_hit_fat4_paged(o, d, tables: dict, t_max=float("inf")):
@@ -1005,7 +1017,7 @@ def closest_hit_fat4_slots(o, d, chunk: dict, t_max=float("inf")):
     sr = _slot_range(chunk)
     return _closest("nb_closest_fat4_slots", closest_hit_fat4_slots,
                     lambda: closest_hit_fat4_plain(o, d, chunk, t_max, slot_range=sr),
-                    o, d, chunk, t_max, gate=sr)
+                    o, d, chunk, t_max, gate=sr, family_check=_check_wide_loads)
 
 
 def any_hit_fat4_slots(o, d, chunk: dict, t_max=float("inf")):
@@ -1075,5 +1087,4 @@ WRAPPERS = (
 )
 for _fn in WRAPPERS:
     _fn.launches = 0
-for _fn in (shadow_closest_fat4, shadow_closest_fat4_paged, shadow_closest_fat4_slots, shadow_closest_fat):
     _fn.record = None

@@ -8,7 +8,9 @@ ragged edges, on the CPU.
     start is not so aligned.  A triangle chunk, the view tris[lo:hi], is
     always 8-byte aligned and is taken for every tri_group: the chained
     slot-gated walks over such views equal JAX's interpreted kernel.
-  * K5 refuses a step below 1.
+  * The closest-hit walk (K1, K6a, K6b) reads rows and triangles as K2
+    does, and its wrappers refuse the same tables before they dispatch.
+  * K4 and K5 refuse a step below 1.
   * K5's plain version on a ragged 13x11 image, where the taps of steps 4
     and 8 reach past every edge, against jax.vjp of the interpreted Pallas
     step and of the XLA step: rtol 1e-5 / atol 1e-6 for a positive
@@ -22,6 +24,7 @@ import pytest
 import torch
 
 FUSED = ("shadow_closest_fat4", "shadow_closest_fat4_paged", "shadow_closest_fat4_slots")
+CLOSEST = ("closest_hit_fat4", "closest_hit_fat4_paged", "closest_hit_fat4_slots")
 
 
 def _soup(n_tris=400, seed=3):
@@ -49,11 +52,14 @@ def _tables(tri_group=8):
 
 
 def _call(name, o, b, l, tables):
+    """A fused wrapper on (o, b, l), or a closest-hit one on (o, b)."""
     from nebulae_tpu_torch.kernels import trace as kt
 
-    if name == "shadow_closest_fat4_slots":
+    if name.endswith("_slots"):
         n = tables["tris"].shape[0]
         tables = {**tables, "slot_lo": 0, "slot_hi": n}
+    if name in CLOSEST:
+        return getattr(kt, name)(o, b, tables)
     return getattr(kt, name)(o, b, l, tables)
 
 
@@ -82,9 +88,7 @@ BAD_TABLES = {
 }
 
 
-@pytest.mark.parametrize("fault", list(BAD_TABLES))
-@pytest.mark.parametrize("name", FUSED)
-def test_fused_walk_refuses_bad_tables_before_dispatch(name, fault):
+def _refuses_bad_tables_before_dispatch(name, fault):
     from nebulae_tpu_torch.kernels import trace as kt
 
     tables = _tables()
@@ -98,6 +102,18 @@ def test_fused_walk_refuses_bad_tables_before_dispatch(name, fault):
     with pytest.raises(ValueError):
         _call(name, o, b, l, bad)
     assert getattr(kt, name).launches == before
+
+
+@pytest.mark.parametrize("fault", list(BAD_TABLES))
+@pytest.mark.parametrize("name", FUSED)
+def test_fused_walk_refuses_bad_tables_before_dispatch(name, fault):
+    _refuses_bad_tables_before_dispatch(name, fault)
+
+
+@pytest.mark.parametrize("fault", list(BAD_TABLES))
+@pytest.mark.parametrize("name", CLOSEST)
+def test_closest_walk_refuses_bad_tables_before_dispatch(name, fault):
+    _refuses_bad_tables_before_dispatch(name, fault)
 
 
 @pytest.mark.parametrize("tri_group, n_tris", [(1, 800), (3, 1500), (8, 1500)])
@@ -156,6 +172,17 @@ def test_atrous_bwd_refuses_step_below_one(step):
     img, one = torch.zeros((h, w, 3)), torch.ones((h, w))
     with pytest.raises(ValueError):
         atrous_step_bwd(img, one, img, one, one, img, step, (4.0, 128, 0.002))
+
+
+@pytest.mark.parametrize("step", [0, -1])
+def test_atrous_fwd_refuses_step_below_one(step):
+    from nebulae_tpu_torch.kernels.svgf import atrous_step, atrous_step_fwd
+
+    h, w = 5, 6
+    img, one = torch.zeros((h, w, 3)), torch.ones((h, w))
+    for fn in (atrous_step_fwd, atrous_step):
+        with pytest.raises(ValueError):
+            fn(img, one, one, img, step, (4.0, 128, 0.002))
 
 
 def _ragged_inputs(h=11, w=13, seed=2):

@@ -20,6 +20,7 @@ update_instances, resize, update_config) against nebulae_tpu, on the CPU.
 """
 
 import dataclasses
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -52,6 +53,20 @@ def _bvhs(tri, max_leaf=15):
     from nebulae_tpu_torch.bvh.builder import build_bvh
 
     return jbuild(tri, max_leaf=max_leaf), build_bvh(tri, max_leaf=max_leaf)
+
+
+def _jax_native():
+    """JAX's native BVH builder loaded, never its numpy fallback: in a fresh
+    checkout each test process runs `make -C native` at first use, and one
+    that loads the library while another links it gets None, so retry."""
+    from nebulae_tpu.bvh import cbuilder as jc
+
+    for _ in range(40):
+        if jc._load_lib() is not None:
+            return
+        jc._lib_tried = False
+        time.sleep(0.5)
+    raise AssertionError("JAX's native builder did not load (make -C native)")
 
 
 def _jax_refit(jbvh, moved):
@@ -250,17 +265,16 @@ def test_update_geometry_matches_jax(textured, wide):
 
     from nebulae_tpu_torch.config import RenderConfig
     from nebulae_tpu_torch.engine.renderer import Renderer
-    from nebulae_tpu_torch.interop import bvh_from_arrays, tables_from_arrays
+    from nebulae_tpu_torch.interop import tables_from_arrays
 
     fs, cam = textured
     kw = dict(KW, bvh_wide=wide)
     moved = _deform(fs.tri_pos, _ext(fs))
+    _jax_native()
     jr = JRenderer(JFlatScene(**fs.field_arrays()), JCfg(**kw))
     assert ("fatnodes" in jr.bvh) == (wide == 2)
-    # The port walks JAX's tree (its native builder may break SAH ties
-    # otherwise than the port's numpy builder on the ground plane).
-    r = Renderer(fs, RenderConfig(**kw), device="cpu",
-                 bvh=bvh_from_arrays({k: np.asarray(v) for k, v in jr.bvh.items()}))
+    # The port builds its own tree, which is JAX's native tree.
+    r = Renderer(fs, RenderConfig(**kw), device="cpu")
 
     def assert_tables_equal():
         want = tables_from_arrays({k: np.asarray(v) for k, v in jr.bvh.items()})
