@@ -10,15 +10,15 @@ Phases (any failure raises and exits non-zero):
               builder, built with g++ at first use: its flags and seconds
               are logged), fat4 tables
   4. kernels  K1-K5 against their plain PyTorch versions at main-path shapes
-              (1080p primary rays, 2^21 bounce/shadow rays, K1 and K2 on
-              each of their launches in a 1080p frame, 1080p a-trous
+              (1080p primary rays, 2^21 bounce/shadow rays, K1, K2 and K3
+              on each of their launches in a 1080p frame, 1080p a-trous
               forward and backward at max error 0, with K5's adjoint
-              identity against K4); K1 and K2 and their slot-gated builds
-              (over the bench scene cut into triangle chunks, K1's chained
-              over them at 1080p) at 1, 31, 33 and 4,097 rays (K2 also one
-              past its group kernel's limit), with zero caps and dead
-              lanes; K4 and K5 on a ragged 1917x1079 frame and with
-              phi_normal 64
+              identity against K4); K1, K2 and K3 and their slot-gated
+              builds (over the bench scene cut into triangle chunks, K1's
+              chained over them at 1080p) at 1, 31, 33 and 4,097 rays (K2
+              and K3 also one past their group bodies' limit), with zero
+              caps and dead lanes; K4 and K5 on a ragged 1917x1079 frame
+              and with phi_normal 64
   5. slice    Renderer.render at 1920x1080, 1 spp, 4 bounces, full shading,
               SVGF, ACES: 3 warm-up and 5 timed frames, with every kernel's
               launch count read around them; then a 64x64 frame on the GPU
@@ -37,13 +37,17 @@ Phases (any failure raises and exits non-zero):
               huge_scene under auto (the paged route, K6a): its kernels
               against their plain versions at full shape, 1 warm-up and 3
               timed frames, one profiled frame, and 1 warm-up and 3 timed
-              train steps; its fused walk at the stress shapes of phase 4.
-              A 12-triangle box with tracer="pallas" (the
+              train steps; its fused and any-hit walks at the stress shapes
+              of phase 4.  The same scene and BVH with bvh_wide=2 (fat2
+              subtree chunks): 1 + 3 frames held against the paged frames,
+              one profiled.  A 12-triangle box with tracer="pallas" (the
               BVH root is a leaf): a 1080p frame through K8, held against
               the brute-force frame
   8. fat2     bvh_wide=2 and dynamic scenes.  The bench scene's fat2 table:
               K7 (fat2 closest, fused and any) against its plain versions
-              and against K1-K3 at the phase-4 shapes, 1 warm-up and 3
+              and against K1-K3 at the phase-4 shapes, K7b also at the
+              stress shapes and on each launch of a 1080p fat2 frame, 1
+              warm-up and 3
               timed 1080p frames held against the fat4 frame, one profiled
               frame, and 1 warm-up and 3 timed train steps.  The 247k scene
               with bvh_wide=2 (two fat2 subtree chunks): the chained K7
@@ -63,19 +67,22 @@ of the JAX package.
 compares source trees in one session on one GPU instead.  A TREE is a
 directory that holds a `nebulae_tpu_torch/` package: this checkout, or an
 unpacked `git archive` of another commit.  One process of this checkout
-builds the bench scene's BVH and saves it, with K2's launches in one
-bench-scene frame at each of AB_SIZES, taken through the wrapper's record
-hook.  Then each tree runs in turn, A B B A per round, in a fresh process
-that builds its kernels, makes phase 4's inputs as phase 4 does on the
-saved BVH (so every tree walks the same tree), and times K1 on the 1080p
-primary rays (a frame's own launch), K2 at phase 4's shape and on each
-saved launch, and K4 and K5 at steps 1, 2, 4 and 8.  Where the tree's K2
-has a group kernel, each frame launch is also timed with the other body:
-split into launches the group kernel takes, or padded with dead rays past
-them; the results must equal the launch's own.  Prints the card's name and
-power limit, one JSON line per process, each tree's medians (K4 and K5 per
-step) and output digests (K1, K2, K4, K5), and which kernels' SASS
-(`cuobjdump -sass`) equals the first tree's.
+builds the bench scene's BVH and saves it, with K2's and K3's launches in
+one bench-scene frame at each of AB_SIZES and K7b's in one 1080p
+bvh_wide=2 frame on that BVH, taken through the wrappers' record hooks.
+Then each tree runs in turn, A B B A per round, in a fresh process that
+builds its kernels, makes phase 4's inputs as phase 4 does on the saved
+BVH (so every tree walks the same tree), and times K1 on the 1080p
+primary rays (a frame's own launch), K2, K3 and K7b at phase 4's shape
+(2^21 rays) and on each saved launch, K3 and K7b on strided subsets of
+those rays (AB_SWEEP), and K4 and K5 at steps 1, 2, 4 and 8.  Where the
+tree's kernel has a group body, each of its launches is also timed with
+the other body: split into launches the group body takes, or padded with
+dead rays past them; the results must equal the launch's own.  Prints the
+card's name and power limit, one JSON line per process, each tree's
+medians (K4 and K5 per step) and output digests (K1, K2, K3, K7b, K4, K5
+and every saved launch), and which kernels' SASS (`cuobjdump -sass`)
+equals the first tree's.
 """
 
 from __future__ import annotations
@@ -152,14 +159,22 @@ def _union_ms(spans) -> float:
     return total / 1e3
 
 
+def _trace_events(prof) -> list:
+    """A finished torch.profiler run's events, from its Chrome trace."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        return json.loads(path.read_text())["traceEvents"]
+
+
 def profile_frame(render, kernel_names, frame_ms: float, phases=PHASES, what: str = "frame") -> None:
     """One frame (or train step) under torch.profiler, read from its Chrome
     trace: device busy time (union of kernel, copy and set spans), the idle
     share of the unprofiled mean time, device time per phase (each kernel
     goes to the record_function range that launched it), the port kernels'
     share, and the costliest kernels."""
-    import tempfile
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -169,10 +184,7 @@ def profile_frame(render, kernel_names, frame_ms: float, phases=PHASES, what: st
         render()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
+    events = _trace_events(prof)
     dev = [e for e in events if e.get("cat") in DEVICE_CATS and "dur" in e]
     if not dev:
         raise RuntimeError("the profiler recorded no device activity")
@@ -274,8 +286,17 @@ def jax_layout_bytes(tables) -> int:
     return kc.jax_table_bytes(tables)
 
 
+def walked_bytes(tables, work) -> int:
+    """The table bytes a walk of this run's rays reads: a row for each node
+    visit and a triangle (40 B) for each triangle test, repeats counted,
+    and at most the tables' own bytes."""
+    rows = next(tables[k] for k in ("fat4nodes", "fatnodes", "nodes") if k in tables)
+    row_bytes = rows.shape[1] * rows.element_size()
+    return min(table_bytes(tables), work.get("visits", 0) * row_bytes + work.get("tri_tests", 0) * 40)
+
+
 def trace_bound(n_rays, tables, work, ray_bytes, out_bytes, n_dirs=1):
-    n_bytes = n_rays * (ray_bytes + out_bytes) + table_bytes(tables)
+    n_bytes = n_rays * (ray_bytes + out_bytes) + walked_bytes(tables, work)
     n_ops = (OPS_BOX * work["box_tests"] + OPS_TRI * work["tri_tests"]
              + OPS_RAY * n_dirs * n_rays)
     return bound_ms(n_bytes, n_ops)
@@ -396,54 +417,44 @@ def hold_combo(held, what, kernel, plain, o, b, l, tables, cap_b=float("inf"), c
     return hk, occ_k
 
 
-def stress_combo(tag, kernel, plain, ro, rb, rl) -> None:
-    """A fused walk against its plain version at 1, 31, 33 and 4,097 rays (a
-    partial warp, a warp and a lane, a partial block of the group kernel)
-    and at one ray more than the group kernel takes (a partial block of the
-    thread-per-ray kernel).  The rays are spread over the sorted batch, with
-    per-ray caps of which some are 0 (as sorted_shadow_closest gives lanes
-    that do not bounce or shoot), dead origins and zero directions.  tri
-    and occ equal, t/u/v within rtol 1e-6."""
+def _same(k, p, what):
+    """A kernel's result equal to its plain version's: occ equal; tri equal
+    and t/u/v within rtol 1e-6 (a fused walk gives both)."""
     import torch
 
-    from nebulae_tpu_torch.kernels.trace import combo_group_rays
-    from nebulae_tpu_torch.tracer.sorting import DEAD_ORIGIN
-
-    sizes = (1, 31, 33, 4097, combo_group_rays() + 1)
-    for n in sizes:
-        pick = torch.linspace(0, ro.shape[0] - 1, n, device=ro.device).long()
-        o, b, l = ro[pick].clone(), rb[pick].clone(), rl[pick].clone()
-        i = torch.arange(n, device=o.device)
-        cap_b = torch.where(i % 3 == 1, 0.0, float("inf"))
-        cap_l = torch.where(i % 4 == 2, 0.0, float("inf"))
-        o[i % 7 == 3] = DEAD_ORIGIN
-        b[i % 11 == 5] = 0.0
-        hk, occ_k = kernel(o, b, l, cap_b, cap_l)
-        hp, occ_p = plain(o, b, l, cap_b, cap_l, {})
-        _hit_err(hk, hp, f"{tag} at {n} rays")
-        assert torch.equal(occ_k, occ_p), f"{tag} at {n} rays: occ differs from its plain version"
-    log(f"{tag} stress: {sizes} rays with zero caps and dead lanes equal their plain version")
+    if isinstance(k, tuple):
+        for a, b in zip(k, p, strict=True):
+            _same(a, b, what)
+    elif isinstance(k, dict):
+        _hit_err(k, p, what)
+    else:
+        assert torch.equal(k, p), f"{what}: occ differs from its plain version"
 
 
-def stress_closest(tag, kernel, plain, o, d) -> None:
-    """A closest-hit walk against its plain version at 1, 31, 33 and 4,097
-    rays (a partial warp, a warp and a lane, a partial block), spread over
-    the 1080p primary rays, with per-ray caps of which some are 0 and some
-    short, dead origins and zero directions: tri equal, t/u/v within rtol
-    1e-6."""
+def stress(tag, kernel, plain, rays, n_caps, two_bodies=True) -> None:
+    """kernel(*rays, *caps) against plain(*rays, *caps, {}) at 1, 31, 33 and
+    4,097 rays (a partial warp, a warp and a lane, a partial block) and,
+    where the kernel has a group body, at one ray more than that body takes
+    (a partial block of the thread-per-ray body).  The rays are spread over
+    the given batch (origin first, then one direction per walk).  Each of
+    the n_caps per-ray caps is 0 on some rays (as sorted_shadow_closest
+    gives lanes that do not bounce or shoot) and short on others; some
+    origins are dead and some first directions zero."""
     import torch
 
+    from nebulae_tpu_torch.kernels.trace import group_rays
     from nebulae_tpu_torch.tracer.sorting import DEAD_ORIGIN
 
-    sizes = (1, 31, 33, 4097)
+    sizes = (1, 31, 33, 4097) + ((group_rays() + 1,) if two_bodies else ())
     for n in sizes:
-        pick = torch.linspace(0, o.shape[0] - 1, n, device=o.device).long()
-        a, b = o[pick].clone(), d[pick].clone()
-        i = torch.arange(n, device=a.device)
-        cap = torch.where(i % 3 == 1, 0.0, torch.where(i % 3 == 2, 2.0, float("inf")))
-        a[i % 7 == 3] = DEAD_ORIGIN
-        b[i % 11 == 5] = 0.0
-        _hit_err(kernel(a, b, cap), plain(a, b, cap, {}), f"{tag} at {n} rays")
+        pick = torch.linspace(0, rays[0].shape[0] - 1, n, device=rays[0].device).long()
+        rs = [r[pick].clone() for r in rays]
+        i = torch.arange(n, device=rs[0].device)
+        caps = [torch.where(i % (3 + k) == 1, 0.0, torch.where(i % (3 + k) == 2, 2.0, float("inf")))
+                for k in range(n_caps)]
+        rs[0][i % 7 == 3] = DEAD_ORIGIN
+        rs[1][i % 11 == 5] = 0.0
+        _same(kernel(*rs, *caps), plain(*rs, *caps, {}), f"{tag} at {n} rays")
     log(f"{tag} stress: {sizes} rays with zero and short caps and dead lanes equal their plain version")
 
 
@@ -496,8 +507,10 @@ def _grad_report(opt) -> dict:
     return dict(zip(names, opt.grads))
 
 
-FAT4_KERNELS = ("closest_fat4_kernel", "combo_fat4", "any_fat4_kernel", "atrous_fwd_kernel")
-FAT2_KERNELS = ("closest_fat_kernel", "combo_fat_kernel", "any_fat_kernel", "atrous_fwd_kernel")
+# Kernel names as the profiler shows them; "combo_fat4", "any_fat4" and
+# "combo_fat_" take both bodies of K2, K3 and K7b.
+FAT4_KERNELS = ("closest_fat4_kernel", "combo_fat4", "any_fat4", "atrous_fwd_kernel")
+FAT2_KERNELS = ("closest_fat_kernel", "combo_fat_", "any_fat_kernel", "atrous_fwd_kernel")
 
 
 def train_phase(renderer, cam, cfg, wrappers, kernel_names=FAT4_KERNELS) -> dict:
@@ -763,7 +776,7 @@ def large_phase(base_cfg) -> tuple[dict, dict]:
     import torch
 
     from nebulae_tpu_torch.bvh.cbuilder import build_bvh_native
-    from nebulae_tpu_torch.engine.renderer import Renderer
+    from nebulae_tpu_torch.engine.renderer import Renderer, init_frame_state
     from nebulae_tpu_torch.kernels import chunks as kc
     from nebulae_tpu_torch.kernels import svgf as ksvgf
     from nebulae_tpu_torch.kernels import trace as kt
@@ -897,9 +910,11 @@ def large_phase(base_cfg) -> tuple[dict, dict]:
         report[name] = h.entry()
         log(f"K6a {name}: kernel {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms "
             f"({h.by}), max err {h.err:.3g}, work {h.work}")
-    stress_combo("K6a", lambda a, b, l_, tb, tl: kt.shadow_closest_fat4_paged(a, b, l_, tab, tb, tl),
-                 lambda a, b, l_, tb, tl, w: kt.shadow_closest_fat4_plain(a, b, l_, tab, tb, tl, work=w),
-                 ro, rb, rl)
+    stress("K6a", lambda a, b, l_, tb, tl: kt.shadow_closest_fat4_paged(a, b, l_, tab, tb, tl),
+           lambda a, b, l_, tb, tl, w: kt.shadow_closest_fat4_plain(a, b, l_, tab, tb, tl, work=w),
+           (ro, rb, rl), 2)
+    stress("K6a any", lambda a, b, t: kt.any_hit_fat4_paged(a, b, tab, t),
+           lambda a, b, t, w: kt.any_hit_fat4_plain(a, b, tab, t, work=w), (ro, rl), 1)
     del o, d, ro, rb, rl
     clock.done("huge kernels")
     paged = {"closest_fat4_paged": kt.closest_hit_fat4_paged,
@@ -914,12 +929,38 @@ def large_phase(base_cfg) -> tuple[dict, dict]:
         f"launches {json.dumps({k: v for k, v in n.items() if v})}")
     _read_launches(launches, n, ("closest_fat4_paged", "shadow_closest_fat4_paged", "any_fat4_paged"))
     assert n["closest_hit_fat4"] == n["shadow_closest_fat4"] == n["any_hit_fat4"] == 0, "resident K1-K3 ran"
-    profile_frame(lambda: r2.render(cam_obj2), ("closest_fat4_kernel", "combo_fat4", "any_fat4_kernel",
-                                               "atrous_fwd_kernel"), mean_ms, what="huge frame")
+    profile_frame(lambda: r2.render(cam_obj2), FAT4_KERNELS, mean_ms, what="huge frame")
     del out
     train_phase(r2, cam2, base_cfg, paged)
     clock.done("huge frames and train")
-    del r2, fs2, bvh2
+
+    # 7b'. The same scene and BVH with bvh_wide=2 under auto: fat2 subtree
+    # chunks (K7 chained), its frames held against the paged fat4 frames
+    # (both with full outputs, from a fresh frame state).
+    r2.update_config(cfg)
+    r2.state = init_frame_state(cfg, dev)
+    out4, ms4f, times4, _ = _frames(r2, cam_obj2, wrappers)
+    del r2
+    t0 = time.perf_counter()
+    r2f = Renderer(fs2, dataclasses.replace(cfg, bvh_wide=2), bvh=bvh2)
+    setup = time.perf_counter() - t0
+    chunks = r2f.tables.get("chunks", [])
+    log(f"fat2 huge: {fs2.num_triangles} triangles -> route {r2f.route}, {len(chunks)} chunks "
+        f"({sum('fatnodes' in c for c in chunks)} fat2, {sum('nodes' in c for c in chunks)} one-node), "
+        f"{table_bytes(r2f.tables)} B (JAX layout {jax_layout_bytes(r2f.tables)} B), "
+        f"stack depths {sorted({c['stack_depth'] for c in chunks})}, set up in {setup:.2f} s")
+    assert r2f.route == "subtree" and any("fatnodes" in c for c in chunks), r2f.route
+    torch.cuda.reset_peak_memory_stats()
+    out2, ms2f, times2, n = _frames(r2f, cam_obj2, wrappers)
+    log(f"fat2 huge frame: {ms2f:.2f} ms/frame (frames {[round(t, 2) for t in times2]}), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; paged fat4 frame {ms4f:.2f} ms (frames "
+        f"{[round(t, 2) for t in times4]}); launches {json.dumps({k: v for k, v in n.items() if v})}")
+    assert n["closest_hit_fat"] > 0 and n["shadow_closest_fat"] > 0 and n["any_hit_fat"] > 0, "K7 chains idle"
+    hold_frame("fat2 huge frame", out2, out4, "the 2M paged fat4 frame")
+    profile_frame(lambda: r2f.render(cam_obj2), FAT2_KERNELS, ms2f, what="fat2 huge frame")
+    del out2, out4, r2f, fs2, bvh2
+    torch.cuda.empty_cache()
+    clock.done("huge fat2 frames")
 
     # 7c. A BVH whose root is a leaf: the one-node route (K8) at 1080p.
     box = box_scene()
@@ -1042,7 +1083,7 @@ def fat2_phase(base_cfg, fs, bvh) -> tuple[dict, dict]:
     import torch
 
     from nebulae_tpu_torch.bvh.cbuilder import build_bvh_native
-    from nebulae_tpu_torch.engine.renderer import Renderer
+    from nebulae_tpu_torch.engine.renderer import Renderer, init_frame_state
     from nebulae_tpu_torch.kernels import svgf as ksvgf
     from nebulae_tpu_torch.kernels import trace as kt
     from nebulae_tpu_torch.passes.gbuffer import make_camera_arrays
@@ -1088,6 +1129,27 @@ def fat2_phase(base_cfg, fs, bvh) -> tuple[dict, dict]:
         report[name] = h.entry()
         log(f"{tag}: kernel {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms ({h.by}), "
             f"max err {h.err:.3g}, work {h.work}")
+
+    # K7b at the stress shapes, and on each launch of one 1080p fat2 frame
+    # (the route's own launches: the kernels line reports these).
+    def k7b(a, b, l_, tb, tl):
+        return kt.shadow_closest_fat(a, b, l_, tab, tb, tl)
+
+    def k7b_plain(a, b, l_, tb, tl, w):
+        return kt.shadow_closest_fat_plain(a, b, l_, tab, tb, tl, work=w)
+
+    stress("K7b", k7b, k7b_plain, (ro, rb, rl), 2)
+    (k7b_launches,) = recorded_launches(lambda: r2.render(cam_obj), kt.shadow_closest_fat)
+    r2.state = init_frame_state(r2.cfg, r2.device)
+    h = Held()
+    for i, (a, b, l_, tb, tl) in enumerate(k7b_launches):
+        ms = h.ms
+        hold_combo(h, f"K7b frame launch {i}", k7b, k7b_plain, a, b, l_, tab, tb, tl)
+        log(f"K7b frame launch {i}: {a.shape[0]} rays, kernel {h.ms - ms:.4f} ms")
+    report["shadow_closest_fat"] = h.entry()
+    log(f"K7b on a fat2 frame's {len(k7b_launches)} launches: kernel {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, "
+        f"bound {h.bound:.4f} ms ({h.by}), max err {h.err:.3g}, work {h.work}")
+    del k7b_launches
     # The same rays through K1-K3 over the fat4 table: the same t and occ
     # (the two layouts may keep another triangle only at an exact t tie).
     one = kt.closest_hit_fat4(o, d, t4)
@@ -1218,19 +1280,27 @@ BVH_FIELDS = ("node_lo", "node_hi", "node_first", "node_count", "node_skip", "no
 
 
 def ab_capture(path: str) -> None:
-    """Save the bench scene's BVH, and K2's launches in one bench-scene
-    frame at each of AB_SIZES."""
+    """Save the bench scene's BVH, K2's and K3's launches in one bench-scene
+    frame at each of AB_SIZES, and K7b's launches in one 1080p bvh_wide=2
+    frame on the same BVH."""
+    import dataclasses
+
     import torch
 
+    from nebulae_tpu_torch.engine.renderer import Renderer
     from nebulae_tpu_torch.kernels import trace as kt
     from nebulae_tpu_torch.utils.testscenes import bench_camera
 
-    fs, bvh, _, renderer = bench_renderer()
-    frames = {}
+    fs, bvh, cfg, renderer = bench_renderer()
+    k2, k3 = {}, {}
     for w, h in AB_SIZES:
         renderer.resize(w, h)
-        (frames[f"{w}x{h}"],) = recorded_launches(lambda: renderer.render(bench_camera(fs)), kt.shadow_closest_fat4)
-    torch.save({"bvh": {k: torch.from_numpy(getattr(bvh, k)) for k in BVH_FIELDS}, "frames": frames}, path)
+        k2[f"{w}x{h}"], k3[f"{w}x{h}"] = recorded_launches(
+            lambda: renderer.render(bench_camera(fs)), kt.shadow_closest_fat4, kt.any_hit_fat4)
+    fat2 = Renderer(fs, dataclasses.replace(cfg, bvh_wide=2), bvh=bvh)
+    (k7b,) = recorded_launches(lambda: fat2.render(bench_camera(fs)), kt.shadow_closest_fat)
+    torch.save({"bvh": {k: torch.from_numpy(getattr(bvh, k)) for k in BVH_FIELDS},
+                "frames": k2, "k3_frames": k3, "k7b_frame": k7b}, path)
 
 
 def _digest(*tensors) -> str:
@@ -1240,44 +1310,125 @@ def _digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def _other_body(k2, most, a, b, l_, tb, tl):
-    """The launch run by the K2 body it does not take: split into launches
-    of at most `most` rays (the group kernel) when it holds more, else
-    padded with dead rays to most + 1 (one thread per ray).  -> (name, fn
-    giving the launch's own rays' results)."""
+def _leaves(x) -> list:
+    """The tensors of a walk's result (a tensor, a hit dict, or a tuple of
+    them) in order."""
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _leaves(v)]
+    if isinstance(x, tuple):
+        return [t for v in x for t in _leaves(v)]
+    return [x]
+
+
+def _cat(parts):
+    """Results of consecutive launches joined as one launch's."""
     import torch
 
-    n = a.shape[0]
+    first = parts[0]
+    if isinstance(first, dict):
+        return {k: _cat([p[k] for p in parts]) for k in first}
+    if isinstance(first, tuple):
+        return tuple(_cat([p[i] for p in parts]) for i in range(len(first)))
+    return torch.cat(parts)
+
+
+def _head(x, n):
+    if isinstance(x, dict):
+        return {k: _head(v, n) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_head(v, n) for v in x)
+    return x[:n]
+
+
+def _other_body(walk, most, rays, caps):
+    """The launch walk(*rays, *caps) run by the body it does not take: split
+    into launches of at most `most` rays (the group body) when it holds
+    more, else padded with dead rays to most + 1 (one thread per ray).
+    -> (name, fn giving the launch's own rays' results)."""
+    import torch
+
+    n = rays[0].shape[0]
+    per_ray = [torch.is_tensor(c) and c.dim() > 0 for c in caps]
     if n > most:
         size = -(-n // -(-n // most))
-        cut = [slice(i, i + size) for i in range(0, n, size)]
 
         def split():
-            parts = [k2(a[c], b[c], l_[c], tb[c] if torch.is_tensor(tb) and tb.dim() else tb,
-                        tl[c] if torch.is_tensor(tl) and tl.dim() else tl) for c in cut]
-            return ({k: torch.cat([p[0][k] for p in parts]) for k in parts[0][0]},
-                    torch.cat([p[1] for p in parts]))
+            return _cat([walk(*(r[i:i + size] for r in rays),
+                              *(c[i:i + size] if p else c for c, p in zip(caps, per_ray)))
+                         for i in range(0, n, size)])
         return "group", split
     pad = most + 1 - n
-    dead = torch.full((pad, 3), 1.0e14, device=a.device)
-    zero = torch.zeros((pad, 3), device=a.device)
-    a2, b2, l2 = torch.cat([a, dead]), torch.cat([b, zero]), torch.cat([l_, zero])
-    tb2, tl2 = (torch.cat([t, torch.zeros(pad, device=a.device)]) if torch.is_tensor(t) and t.dim() else t
-                for t in (tb, tl))
+    dev = rays[0].device
+    rays2 = [torch.cat([rays[0], torch.full((pad, 3), 1.0e14, device=dev)])]
+    rays2 += [torch.cat([r, torch.zeros((pad, 3), device=dev)]) for r in rays[1:]]
+    caps2 = [torch.cat([c, torch.zeros(pad, device=dev)]) if p else c for c, p in zip(caps, per_ray)]
+    return "thread", lambda: _head(walk(*rays2, *caps2), n)
 
-    def padded():
-        hit, occ = k2(a2, b2, l2, tb2, tl2)
-        return {k: v[:n] for k, v in hit.items()}, occ[:n]
-    return "thread", padded
+
+_PORT_KERNEL = re.compile(r"(closest|combo|any)_\w*kernel")
+
+
+def device_ms(fn, runs: int) -> tuple[float, int]:
+    """The device time of the port's kernels in one fn() call, from a
+    profiler trace of `runs` calls: the wrapper's host enqueue, which
+    CUDA events around a launch of a few thousand rays mostly measure, is
+    left out.  -> (ms, sessions that recorded no launch and were run
+    again)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    # A profiler session now and then records no device events at all (seen
+    # once in ~150 sessions of one process): such a session is run again,
+    # and the row says so.
+    for empty in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        durs = [e["dur"] for e in _trace_events(prof)
+                if e.get("cat") == "kernel" and _PORT_KERNEL.search(e.get("name", ""))]
+        if durs:
+            return sum(durs) / runs / 1e3, empty
+    raise RuntimeError("three profiler sessions recorded no launch of a port kernel")
+
+
+def _ab_launch(walk, n_rays, args, most, runs) -> dict:
+    """One launch's row: its lanes, output digest, median ms (CUDA events)
+    and device ms (profiler), and where `most` is given the same for the
+    other body, whose results must be equal."""
+    import torch
+
+    out = walk(*args)
+    row = {"lanes": args[0].shape[0], "digest": _digest(*_leaves(out)),
+           "ms": timed_ms(lambda: walk(*args), runs)}
+    row["dev_ms"], row["dev_empty_sessions"] = device_ms(lambda: walk(*args), runs)
+    if most:
+        name, fn = _other_body(walk, most, args[:n_rays], args[n_rays:])
+        assert all(torch.equal(a, b) for a, b in zip(_leaves(out), _leaves(fn()))), \
+            f"the {name} body differs on a {row['lanes']}-ray launch"
+        row[f"{name}_ms"] = timed_ms(fn, runs)
+        row[f"{name}_dev_ms"], row[f"{name}_dev_empty_sessions"] = device_ms(fn, runs)
+    return row
+
+
+# --ab: K3's and K7b's bodies on strided subsets of phase 4's sorted rays,
+# to place the cutoff between them.
+AB_SWEEP = (1 << 17, 1 << 18, 1 << 19, 1 << 20)
 
 
 def ab_child(tree: str, path: str, runs: int) -> dict:
     """Build `tree`'s kernels and time them: on phase 4's inputs, made as
-    phase 4 makes them, and on the saved K2 launches."""
+    phase 4 makes them, and on the saved launches of K2, K3 and K7b (each
+    also with its other body where the tree's kernel has two)."""
     sys.path.insert(0, tree)
+    import dataclasses
+
     import torch
 
     from nebulae_tpu_torch.bvh.builder import FlatBVH
+    from nebulae_tpu_torch.engine.renderer import Renderer
     from nebulae_tpu_torch.kernels import svgf as ksvgf
     from nebulae_tpu_torch.kernels import trace as kt
     from nebulae_tpu_torch.kernels.build import native
@@ -1292,15 +1443,30 @@ def ab_child(tree: str, path: str, runs: int) -> dict:
     bvh = FlatBVH(**{k: v.numpy() for k, v in saved["bvh"].items()})
     fs, _, cfg, renderer = bench_renderer(bvh=bvh)
     tables = renderer.tables
+    fat2 = Renderer(fs, dataclasses.replace(cfg, bvh_wide=2), bvh=bvh).tables
     cam = make_camera_arrays(bench_camera(fs), WIDTH, HEIGHT, "cuda")
     (o, d), (ro, rb, rl), gbuf, gen = path_rays(
         renderer.scene, lambda a, b: kt.closest_hit_fat4(a, b, tables), renderer.sun, cam)
     rad, var, depth, nrm = atrous_inputs(gbuf, gen)
     del gbuf
     res = {"tree": tree, "build_s": lib.build_seconds}
+    # K2's cutoff (combo_group_rays in trees where only K2 had a group
+    # body); K3 and K7b take it where the tree's library holds their group
+    # kernels.
+    most = (getattr(kt, "group_rays", None) or kt.combo_group_rays)()
+    res["group_rays"] = most
+    names = " ".join(sass(tree))
+    most_k3 = most if "any_fat4_group_kernel" in names else None
+    most_k7b = most if "combo_fat_group_kernel" in names else None
 
     def k2(a, b, l_, tb=float("inf"), tl=float("inf")):
         return kt.shadow_closest_fat4(a, b, l_, tables, tb, tl)
+
+    def k3(a, b, t=float("inf")):
+        return kt.any_hit_fat4(a, b, tables, t)
+
+    def k7b(a, b, l_, tb=float("inf"), tl=float("inf")):
+        return kt.shadow_closest_fat(a, b, l_, fat2, tb, tl)
 
     hit, occ = k2(ro, rb, rl)
     res["k2_digest"] = _digest(hit["t"], hit["tri"], hit["u"], hit["v"], occ)
@@ -1308,23 +1474,22 @@ def ab_child(tree: str, path: str, runs: int) -> dict:
     hit = kt.closest_hit_fat4(o, d, tables)
     res["k1_digest"] = _digest(hit["t"], hit["tri"], hit["u"], hit["v"])
     res["k1_ms"] = timed_ms(lambda: kt.closest_hit_fat4(o, d, tables), runs)
-    most = kt.combo_group_rays() if hasattr(kt, "combo_group_rays") else None
-    res["k2_group_rays"] = most
-    res["k2_frames"] = {}
-    for size, launches in saved["frames"].items():
-        rows = []
-        for c in launches:
-            hit, occ = k2(*c)
-            row = {"lanes": c[0].shape[0], "digest": _digest(hit["t"], hit["tri"], hit["u"], hit["v"], occ),
-                   "ms": timed_ms(lambda c=c: k2(*c), runs)}
-            if most:
-                body, fn = _other_body(k2, most, *c)
-                hit2, occ2 = fn()
-                assert all(torch.equal(hit[k], hit2[k]) for k in hit) and torch.equal(occ, occ2), \
-                    f"{size}: K2's {body} body differs on a {row['lanes']}-ray launch"
-                row[f"{body}_ms"] = timed_ms(fn, runs)
-            rows.append(row)
-        res["k2_frames"][size] = rows
+    for name, walk, n_rays, args, two in (("k3", k3, 2, (ro, rl), most_k3),
+                                          ("k7b", k7b, 3, (ro, rb, rl), most_k7b)):
+        row = _ab_launch(walk, n_rays, args, two, runs)
+        res[f"{name}_digest"] = row["digest"]
+        res[f"{name}_phase4_ms"] = row["ms"]
+        res[f"{name}_phase4"] = row
+        sweep = []
+        for n in AB_SWEEP:
+            pick = torch.linspace(0, ro.shape[0] - 1, n, device=ro.device).long()
+            sweep.append(_ab_launch(walk, n_rays, tuple(x[pick].contiguous() for x in args), two, runs))
+        res[f"{name}_sweep"] = sweep
+    res["k2_frames"] = {size: [_ab_launch(k2, 3, c, most, runs) for c in launches]
+                        for size, launches in saved["frames"].items()}
+    res["k3_frames"] = {size: [_ab_launch(k3, 2, c, most_k3, runs) for c in launches]
+                        for size, launches in saved["k3_frames"].items()}
+    res["k7b_frame"] = [_ab_launch(k7b, 3, c, most_k7b, runs) for c in saved["k7b_frame"]]
     phi = (cfg.svgf_phi_color, cfg.svgf_phi_normal, cfg.svgf_phi_depth)
     gen = torch.Generator(device="cuda").manual_seed(99)
     digests = {"k4": [], "k5": []}
@@ -1396,18 +1561,34 @@ def ab_main(argv) -> int:
                     if ln.startswith("{")][-1]
             results.append(json.loads(line))
             log(line)
-    keys = ("k1_ms", "k2_phase4_ms", "k4_ms", "k5_ms",
+    keys = ("k1_ms", "k2_phase4_ms", "k3_phase4_ms", "k7b_phase4_ms", "k4_ms", "k5_ms",
             *(f"k{k}_step{s}_ms" for k in (4, 5) for s in (1, 2, 4, 8)))
+
+    def rows_median(rs, get):
+        """Per-launch rows across a tree's runs: each ms the median, the
+        empty profiler sessions summed, the rest as the first run has it."""
+        def merge(k, vals):
+            if k.endswith("ms"):
+                return statistics.median(vals)
+            return sum(vals) if k.endswith("empty_sessions") else vals[0]
+        return [{k: merge(k, [get(r)[i][k] for r in rs]) for k in row if k != "digest"}
+                for i, row in enumerate(get(rs[0]))]
+
     for tree in args.trees:
         rs = [r for r in results if r["tree"] == tree]
         summary = {k: statistics.median(r[k] for r in rs) for k in keys}
-        summary["k2_group_rays"] = rs[0]["k2_group_rays"]
-        for size, rows in rs[0]["k2_frames"].items():
-            summary[size] = [{k: (statistics.median(r["k2_frames"][size][i][k] for r in rs) if k.endswith("ms")
-                                  else row[k]) for k in row if k != "digest"} for i, row in enumerate(rows)]
-        summary["digests"] = sorted({(r["k1_digest"], r["k2_digest"], r["k4_digest"], r["k5_digest"],
-                                      *(c["digest"] for rows in r["k2_frames"].values() for c in rows))
-                                     for r in rs})
+        summary["group_rays"] = rs[0]["group_rays"]
+        for name in ("k3", "k7b"):
+            summary[f"{name}_phase4"] = rows_median(rs, lambda r: [r[f"{name}_phase4"]])[0]
+            summary[f"{name}_sweep"] = rows_median(rs, lambda r: r[f"{name}_sweep"])
+        for size in rs[0]["k2_frames"]:
+            summary[f"k2 {size}"] = rows_median(rs, lambda r: r["k2_frames"][size])
+            summary[f"k3 {size}"] = rows_median(rs, lambda r: r["k3_frames"][size])
+        summary["k7b 1920x1080 fat2"] = rows_median(rs, lambda r: r["k7b_frame"])
+        summary["digests"] = sorted({
+            (*(r[f"{k}_digest"] for k in ("k1", "k2", "k3", "k7b", "k4", "k5")),
+             *(c["digest"] for f in ("k2_frames", "k3_frames") for rows in r[f].values() for c in rows),
+             *(c["digest"] for c in r["k7b_frame"])) for r in rs})
         log(f"{tree}: {json.dumps(summary)}")
     base = sass(args.trees[0])
     for tree in args.trees[1:]:
@@ -1501,10 +1682,11 @@ def main() -> int:
     k1_hit = hold_closest(h, "K1", k1, k1_plain, o, d, tables)
     log(f"K1 closest: {n_pix} rays, hit {float((k1_hit['tri'] >= 0).float().mean()):.3f}, kernel {h.ms:.3f} ms, "
         f"plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms ({h.by}), max err {h.err:.3g}, work {h.work}")
-    # K1 and K2 on the main path's own launches: those of one 1080p frame,
-    # each held against its plain version on the inputs the frame gave it.
-    k1_launches, k2_launches = recorded_launches(lambda: renderer.render(cam_obj), kt.closest_hit_fat4,
-                                                 kt.shadow_closest_fat4)
+    # K1, K2 and K3 on the main path's own launches: those of one 1080p
+    # frame, each held against its plain version on the inputs the frame
+    # gave it.
+    k1_launches, k2_launches, k3_launches = recorded_launches(
+        lambda: renderer.render(cam_obj), kt.closest_hit_fat4, kt.shadow_closest_fat4, kt.any_hit_fat4)
     h = Held()
     for i, (a, b, t) in enumerate(k1_launches):
         ms = h.ms
@@ -1513,7 +1695,7 @@ def main() -> int:
     report["closest_fat4"] = h.entry()
     log(f"K1 on a frame's {len(k1_launches)} launch(es): kernel {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, "
         f"bound {h.bound:.4f} ms ({h.by}), max err {h.err:.3g}, work {h.work}")
-    stress_closest("K1", k1, k1_plain, o, d)
+    stress("K1", k1, k1_plain, (o, d), 1, two_bodies=False)
     del k1_launches
 
     # Bounce and shadow rays from primary surface points, as at a path vertex.
@@ -1525,7 +1707,7 @@ def main() -> int:
 
     h = Held()
     hit, occ = hold_combo(h, "K2", k2, k2_plain, ro, rb, rl, tables)
-    log(f"K2 combo: {N_RANDOM} rays (the group kernel takes up to {kt.combo_group_rays()}), bounce hit "
+    log(f"K2 combo: {N_RANDOM} rays (the group bodies take up to {kt.group_rays()}), bounce hit "
         f"{float((hit['tri'] >= 0).float().mean()):.3f}, occluded {float(occ.float().mean()):.3f}, "
         f"kernel {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms ({h.by}), "
         f"max err {h.err:.3g}, work {h.work}")
@@ -1543,7 +1725,7 @@ def main() -> int:
     # 139k scene's triangle chunks under a 5 MB budget (its SlotRange build);
     # there also K1's SlotRange build at the stress shapes and chained over
     # the chunks on the 1080p primary rays, which must end at K1's hits.
-    stress_combo("K2", k2, k2_plain, ro, rb, rl)
+    stress("K2", k2, k2_plain, (ro, rb, rl), 2)
     budget = kc.TRI_CHUNK_TABLE_BUDGET
     kc.TRI_CHUNK_TABLE_BUDGET = 5 * 1024 * 1024
     try:
@@ -1554,8 +1736,9 @@ def main() -> int:
     for c in tri_chunks:
         closest, closest_p, combo, combo_p, _, _ = _slot_fns(c)
         tag = f"K6b chunk [{c['slot_lo']}, {c['slot_hi']}) of {len(tri_chunks)}"
-        stress_combo(tag, combo, combo_p, ro, rb, rl)
-        stress_closest(f"{tag} closest", closest, closest_p, o, d)
+        stress(tag, combo, combo_p, (ro, rb, rl), 2)
+        stress(f"{tag} any", *_slot_fns(c)[4:], (ro, rl), 1)
+        stress(f"{tag} closest", closest, closest_p, (o, d), 1, two_bodies=False)
         cap = float("inf") if best is None else best["t"]
         best = _merge_hits(best, hold_closest(h, f"{tag} closest", closest, closest_p, o, d, c, cap))
     assert torch.equal(best["t"], k1_hit["t"]) and torch.equal(best["tri"] >= 0, k1_hit["tri"] >= 0), \
@@ -1564,12 +1747,26 @@ def main() -> int:
         f"{h.plain_ms:.1f} ms, max err {h.err:.3g}; ends at K1's t")
     del best, k1_hit
 
+    def k3(a, b, t):
+        return kt.any_hit_fat4(a, b, tables, t)
+
+    def k3_plain(a, b, t, w):
+        return kt.any_hit_fat4_plain(a, b, tables, t, work=w)
+
     h = Held()
-    occ = hold_any(h, "K3", lambda a, b, t: kt.any_hit_fat4(a, b, tables, t),
-                   lambda a, b, t, w: kt.any_hit_fat4_plain(a, b, tables, t, work=w), ro, rl, tables)
+    occ = hold_any(h, "K3", k3, k3_plain, ro, rl, tables)
+    log(f"K3 any: {N_RANDOM} rays, occluded {float(occ.float().mean()):.3f}, "
+        f"kernel {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms ({h.by}), work {h.work}")
+    h = Held()
+    for i, (a, b, t) in enumerate(k3_launches):
+        ms = h.ms
+        hold_any(h, f"K3 frame launch {i}", k3, k3_plain, a, b, tables, t)
+        log(f"K3 frame launch {i}: {a.shape[0]} rays, kernel {h.ms - ms:.4f} ms")
     report["any_fat4"] = h.entry()
-    log(f"K3 any: {N_RANDOM} rays, occluded {float(occ.float().mean()):.3f}, kernel {h.ms:.3f} ms, "
-        f"plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms ({h.by}), work {h.work}")
+    log(f"K3 on a frame's {len(k3_launches)} launch(es): kernel {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, "
+        f"bound {h.bound:.4f} ms ({h.by}), work {h.work}")
+    stress("K3", k3, k3_plain, (ro, rl), 1)
+    del k3_launches
 
     # K4 on a 1080p frame's guidance buffers with noisy radiance.
     rad, var, depth, nrm = atrous_inputs(gbuf, gen)
@@ -1699,9 +1896,7 @@ def main() -> int:
     log(f"slice: {frame_s * 1e3:.2f} ms/frame (mean of 5; frames {[round(t * 1e3, 2) for t in times]}), "
         f"{rays / frame_s / 1e6:.2f} Mrays/s, ldr mean {float(ldr.mean()):.4f}, launches {launches}, "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_frame(lambda: renderer.render(cam_obj),
-                  ("closest_fat4_kernel", "combo_fat4", "any_fat4_kernel", "atrous_fwd_kernel"),
-                  frame_s * 1e3)
+    profile_frame(lambda: renderer.render(cam_obj), FAT4_KERNELS, frame_s * 1e3)
 
     # A small frame on the GPU against the CPU through the plain versions.
     small = textured_scene(seed=0)

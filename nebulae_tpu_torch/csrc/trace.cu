@@ -78,6 +78,22 @@
 // registers and the 512-byte stack: 28 of 64 warps per SM.  Tried and
 // dropped: one warp per 8x4 pixel tile instead of 32 rays of a row (0.350
 // against 0.333).
+// K3 (any_fat4_kernel, any_fat4_group_kernel) and K7b (combo_fat_kernel,
+// combo_fat_group_kernel) took K2's design: wide loads, registers, the leaf
+// loop x4, and 8 lanes per ray up to the same cutoff.  Device time from the
+// profiler, each against the parent's kernel on the same launches in one
+// chip_smoke.py --ab session (A B C C B A; H100 80GB HBM3 at 700 W):
+//   - K3 on a 1080p frame's last-vertex launch (1,169 rays) 0.166 -> 0.018
+//     ms (4 lanes: 0.035), at 2^21 rays (one thread per ray) 0.295 ->
+//     0.227; 64 registers in the group body;
+//   - K7b on a 1080p fat2 frame's three launches (443k, 15k, 7.6k rays)
+//     0.510 + 0.417 + 0.494 -> 0.372 + 0.077 + 0.066 ms (4 lanes: 0.304 +
+//     0.102 + 0.099), at 2^21 rays 1.233 -> 1.036; 80 registers in the
+//     group body.
+// Four lanes (kGroup = 4 for these two) win from ~2^18 rays up and lose on
+// small launches, so all three group bodies keep kGroup = 8.  Each group
+// body still beats one thread per ray at 524,288 rays and loses at 2^20, as
+// K2's does: the cutoff stays.
 //
 // Build with --fmad=false: the plain PyTorch version rounds after every
 // multiply and add, and nvcc would otherwise contract a*b-c into an FMA.
@@ -158,28 +174,6 @@ __device__ __forceinline__ bool moller(const float* __restrict__ tv, const Ray& 
   t = ((e2x * qx + e2y * qy) + e2z * qz) * inv_det;
   return (fabsf(det) >= kEps) && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
          (t > kEps) && (t < cap);
-}
-
-struct Fields {
-  int field[4];
-  int meta[4];
-  int om_s, om_l, om_r;
-};
-
-__device__ __forceinline__ Fields decode(const float* __restrict__ row) {
-  Fields f;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    int enc = __float_as_int(__ldg(row + 24 + k));
-    f.field[k] = enc & 31;
-    f.meta[k] = enc >> 5;
-  }
-  int om = __float_as_int(__ldg(row + 28));
-  f.om_s = om / 36;
-  int rest = om % 36;
-  f.om_l = rest / 6;
-  f.om_r = rest % 6;
-  return f;
 }
 
 // True when the first node of an (om-described) pair is nearer along d.
@@ -265,7 +259,13 @@ __device__ __forceinline__ int pick(int k, int a, int b, int c, int d) {
   return k == 0 ? a : (k == 1 ? b : (k == 2 ? c : d));
 }
 
-// near_first() over the direction signs as bits (x, y, z at bits 0, 1, 2).
+// A ray's direction signs as bits (x, y, z at bits 0, 1, 2).
+__device__ __forceinline__ unsigned pos_bits(const Ray& r) {
+  return static_cast<unsigned>(r.pos[0]) | static_cast<unsigned>(r.pos[1]) << 1 |
+         static_cast<unsigned>(r.pos[2]) << 2;
+}
+
+// near_first() over pos_bits().
 __device__ __forceinline__ bool near_first_bits(int om, unsigned pos) {
   return ((pos >> (om >> 1)) & 1u) == static_cast<unsigned>(om & 1);
 }
@@ -284,6 +284,30 @@ __device__ __forceinline__ void push_inner(int* stack, int& sp, const int (&enc)
   for (int m = 0; m < 4; ++m) {
     int k = order[m];
     if ((inner >> k) & 1u) stack[sp++] = pick(k, enc[0], enc[1], enc[2], enc[3]) >> 5;
+  }
+}
+
+// One leaf's `count` triangles from `slot` for the fused walks' one-thread
+// bodies (K2, K7b): the bounce ray, where its box was hit (tb), keeps the
+// closest hit under its running cap; the shadow ray, where its box was hit
+// (tl), stops testing at its first hit under cap_l.  Unrolled so that the
+// next triangles' loads and arithmetic, which do not depend on bt, overlap
+// this one's test and update.
+__device__ __forceinline__ void combo_leaf(const float* __restrict__ slot, int count, bool tb,
+                                           bool tl, const Ray& rb, const Ray& rl, float cap_l,
+                                           float& bt, int& btri, float& bu, float& bv,
+                                           bool& occ) {
+#pragma unroll 4
+  for (int j = 0; j < count; ++j) {
+    Tri tr = load_tri(slot + j * kTriStride);
+    float t, u, v;
+    if (tb && moller_tri(tr, rb, bt, t, u, v)) {
+      bt = t;
+      btri = tr.id;
+      bu = u;
+      bv = v;
+    }
+    if (tl && !occ && moller_tri(tr, rl, cap_l, t, u, v)) occ = true;
   }
 }
 
@@ -314,8 +338,7 @@ __global__ void closest_fat4_kernel(const float* __restrict__ o, const float* __
   if (!is_dead(r.ox, r.dx, r.dy, r.dz) && bt > kEps) {
     int stack[kStackMax];
     const float4* rows = reinterpret_cast<const float4*>(nodes);
-    unsigned pos = static_cast<unsigned>(r.pos[0]) | static_cast<unsigned>(r.pos[1]) << 1 |
-                   static_cast<unsigned>(r.pos[2]) << 2;
+    unsigned pos = pos_bits(r);
     int sp = 0;
     stack[sp++] = 0;
     while (sp > 0) {
@@ -389,8 +412,7 @@ __global__ void combo_fat4_kernel(const float* __restrict__ o, const float* __re
   if (live_b || live_l) {
     int stack[kStackMax];
     const float4* rows = reinterpret_cast<const float4*>(nodes);
-    unsigned pos = static_cast<unsigned>(rb.pos[0]) | static_cast<unsigned>(rb.pos[1]) << 1 |
-                   static_cast<unsigned>(rb.pos[2]) << 2;
+    unsigned pos = pos_bits(rb);
     int sp = 0;
     stack[sp++] = 0;
     while (sp > 0) {
@@ -419,23 +441,8 @@ __global__ void combo_fat4_kernel(const float* __restrict__ o, const float* __re
         int k = __ffs(leaves) - 1;
         leaves &= leaves - 1;
         int e = pick(k, enc[0], enc[1], enc[2], enc[3]);
-        bool tb = (mb >> k) & 1u, tl = (ml >> k) & 1u;
-        const float* slot = tris + static_cast<int64_t>(gate.row(e >> 5)) * G * kTriStride;
-        int count = (e & 31) * G;
-        // Unrolled so that the next triangles' loads and arithmetic, which
-        // do not depend on bt, overlap this one's test and update.
-#pragma unroll 4
-        for (int j = 0; j < count; ++j) {
-          Tri tr = load_tri(slot + j * kTriStride);
-          float t, u, v;
-          if (tb && moller_tri(tr, rb, bt, t, u, v)) {
-            bt = t;
-            btri = tr.id;
-            bu = u;
-            bv = v;
-          }
-          if (tl && !occ && moller_tri(tr, rl, cap_l, t, u, v)) occ = true;
-        }
+        combo_leaf(tris + static_cast<int64_t>(gate.row(e >> 5)) * G * kTriStride, (e & 31) * G,
+                   (mb >> k) & 1u, (ml >> k) & 1u, rb, rl, cap_l, bt, btri, bu, bv, occ);
       }
       push_inner(stack, sp, enc, inner, __float_as_int(q7.x), pos);
     }
@@ -457,6 +464,56 @@ __global__ void combo_fat4_kernel(const float* __restrict__ o, const float* __re
 // is the least t with the earliest triangle on a tie, which is the answer
 // of the sequential test.  Every lane keeps the same stack and ray state.
 constexpr int kGroup = 8;
+
+// A leaf's `slots` slots of G triangles from `slot` for the fused walks'
+// group bodies (K2, K7b), in slot order: each lane tests its triangles g =
+// sub, sub + kGroup, ... of a slot against the caps from before the slot;
+// the group's least (t, g) is the bounce hit, and any lane's shadow hit
+// occludes.  Every lane of the group calls it with the same arguments
+// except `sub`, and leaves with the same bt, btri, bu, bv and occ.
+__device__ __forceinline__ void combo_group_slots(const float* __restrict__ slot, int slots, int G,
+                                                  int sub, int base, unsigned group, bool tb,
+                                                  bool tl, const Ray& rb, const Ray& rl,
+                                                  float cap_l, float& bt, int& btri, float& bu,
+                                                  float& bv, bool& occ) {
+  for (int s = 0; s < slots; ++s, slot += G * kTriStride) {
+    float best_t = bt, best_u = 0.0f, best_v = 0.0f;
+    int best_g = G, best_id = -1;
+    bool hit_l = false;
+    for (int g = sub; g < G; g += kGroup) {
+      Tri tr = load_tri(slot + g * kTriStride);
+      float t, u, v;
+      if (tb && moller_tri(tr, rb, bt, t, u, v) && t < best_t) {
+        best_t = t;
+        best_g = g;
+        best_u = u;
+        best_v = v;
+        best_id = tr.id;
+      }
+      if (tl && !occ && moller_tri(tr, rl, cap_l, t, u, v)) hit_l = true;
+    }
+    // The group's least (t, g).
+    float win_t = best_t;
+    int win_g = best_g;
+#pragma unroll
+    for (int off = kGroup / 2; off > 0; off >>= 1) {
+      float ot = __shfl_xor_sync(group, win_t, off);
+      int og = __shfl_xor_sync(group, win_g, off);
+      if (ot < win_t || (ot == win_t && og < win_g)) {
+        win_t = ot;
+        win_g = og;
+      }
+    }
+    if (win_g < G) {
+      int owner = base + win_g % kGroup;
+      bt = win_t;
+      btri = __shfl_sync(group, best_id, owner);
+      bu = __shfl_sync(group, best_u, owner);
+      bv = __shfl_sync(group, best_v, owner);
+    }
+    occ = occ || (__ballot_sync(group, hit_l) != 0u);
+  }
+}
 
 template <class Gate>
 __global__ void combo_fat4_group_kernel(const float* __restrict__ o, const float* __restrict__ b,
@@ -485,8 +542,7 @@ __global__ void combo_fat4_group_kernel(const float* __restrict__ o, const float
   bool occ = false;
   if (live_b || live_l) {
     int stack[kStackMax];
-    unsigned pos = static_cast<unsigned>(rb.pos[0]) | static_cast<unsigned>(rb.pos[1]) << 1 |
-                   static_cast<unsigned>(rb.pos[2]) << 2;
+    unsigned pos = pos_bits(rb);
     const bool shadow_lane = sub >= 4;
     int sp = 0;
     stack[sp++] = 0;
@@ -516,46 +572,9 @@ __global__ void combo_fat4_group_kernel(const float* __restrict__ o, const float
         int k = __ffs(leaves) - 1;
         leaves &= leaves - 1;
         int e = pick(k, enc[0], enc[1], enc[2], enc[3]);
-        bool tb = (mb >> k) & 1u, tl = (ml >> k) & 1u;
-        const float* slot = tris + static_cast<int64_t>(gate.row(e >> 5)) * G * kTriStride;
-        for (int s = 0; s < (e & 31); ++s, slot += G * kTriStride) {
-          // This lane's triangles g = sub, sub + kGroup, ... of the slot.
-          float best_t = bt, best_u = 0.0f, best_v = 0.0f;
-          int best_g = G, best_id = -1;
-          bool hit_l = false;
-          for (int g = sub; g < G; g += kGroup) {
-            Tri tr = load_tri(slot + g * kTriStride);
-            float t, u, v;
-            if (tb && moller_tri(tr, rb, bt, t, u, v) && t < best_t) {
-              best_t = t;
-              best_g = g;
-              best_u = u;
-              best_v = v;
-              best_id = tr.id;
-            }
-            if (tl && !occ && moller_tri(tr, rl, cap_l, t, u, v)) hit_l = true;
-          }
-          // The group's least (t, g).
-          float win_t = best_t;
-          int win_g = best_g;
-#pragma unroll
-          for (int off = kGroup / 2; off > 0; off >>= 1) {
-            float ot = __shfl_xor_sync(group, win_t, off);
-            int og = __shfl_xor_sync(group, win_g, off);
-            if (ot < win_t || (ot == win_t && og < win_g)) {
-              win_t = ot;
-              win_g = og;
-            }
-          }
-          if (win_g < G) {
-            int owner = base + win_g % kGroup;
-            bt = win_t;
-            btri = __shfl_sync(group, best_id, owner);
-            bu = __shfl_sync(group, best_u, owner);
-            bv = __shfl_sync(group, best_v, owner);
-          }
-          occ = occ || (__ballot_sync(group, hit_l) != 0u);
-        }
+        combo_group_slots(tris + static_cast<int64_t>(gate.row(e >> 5)) * G * kTriStride, e & 31, G,
+                          sub, base, group, (mb >> k) & 1u, (ml >> k) & 1u, rb, rl, cap_l, bt,
+                          btri, bu, bv, occ);
       }
       push_inner(stack, sp, enc, inner, om, pos);
     }
@@ -569,6 +588,25 @@ __global__ void combo_fat4_group_kernel(const float* __restrict__ o, const float
   }
 }
 
+// K3, the any-hit walk (and so its paged build K6a, its SlotRange build
+// K6b and the subtree chains K6c), redesigned for Hopper.  Occlusion under
+// a fixed cap does not depend on the order of the walk: the walk tests
+// every triangle of every leaf whose box the ray enters under the cap, and
+// stops at the first hit.  So any body gives the plain walk's occ bit for
+// bit; both keep its push order (slots pushed 0..3, slot 3 on top) all the
+// same, so that the work counts stay comparable.  Two bodies behind one
+// launch (launch_any_fat4), as K2's:
+//   - one thread per ray for large launches (2^21 rays at a path vertex,
+//     the direct pass), with K1's and K2's levers: the row as 16-byte loads
+//     right after the pop (7 of the 8: the order meta is not needed),
+//     masks and encodings in registers, triangles as 8-byte loads, the leaf
+//     loop unrolled by 4;
+//   - kGroup lanes per ray for small ones (the main path's last-vertex
+//     launch holds ~1,200 rays, 10 blocks of 128 threads on a 132-SM card,
+//     so one thread per ray takes as long as its slowest warp's walk):
+//     lanes 0-3 test boxes 0-3 (lanes 4-7 repeat them), a leaf's triangles
+//     are dealt out to the lanes, and one ballot tells the group whether to
+//     leave the walk.
 template <class Gate>
 __global__ void any_fat4_kernel(const float* __restrict__ o, const float* __restrict__ d,
                                 const float* __restrict__ tmax, int tmax_stride,
@@ -582,35 +620,112 @@ __global__ void any_fat4_kernel(const float* __restrict__ o, const float* __rest
   bool occ = false;
   if (!is_dead(r.ox, r.dx, r.dy, r.dz) && cap > kEps) {
     int stack[kStackMax];
+    const float4* rows = reinterpret_cast<const float4*>(nodes);
     int sp = 0;
     stack[sp++] = 0;
     while (sp > 0 && !occ) {
-      const float* row = nodes + static_cast<int64_t>(stack[--sp]) * kNodeStride;
-      bool box[4];
+      const float4* row = rows + static_cast<int64_t>(stack[--sp]) * (kNodeStride / 4);
+      float4 q0 = __ldg(row), q1 = __ldg(row + 1), q2 = __ldg(row + 2), q3 = __ldg(row + 3);
+      float4 q4 = __ldg(row + 4), q5 = __ldg(row + 5), q6 = __ldg(row + 6);
+      const Box box[4] = {{q0.x, q0.y, q0.z, q0.w, q1.x, q1.y},
+                          {q1.z, q1.w, q2.x, q2.y, q2.z, q2.w},
+                          {q3.x, q3.y, q3.z, q3.w, q4.x, q4.y},
+                          {q4.z, q4.w, q5.x, q5.y, q5.z, q5.w}};
+      const int enc[4] = {__float_as_int(q6.x), __float_as_int(q6.y), __float_as_int(q6.z),
+                          __float_as_int(q6.w)};
+      unsigned leaves = 0, inner = 0;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) box[k] = slab(row, k, r, cap);
-      Fields f = decode(row);
-      for (int k = 0; k < 4 && !occ; ++k) {
-        if (!(box[k] && is_leaf(f.field[k]) && gate.resident(f.meta[k]))) continue;
-        int first = gate.row(f.meta[k]);
-        for (int s = 0; s < f.field[k] && !occ; ++s) {
-          const float* slot = tris + (static_cast<int64_t>(first) + s) * G * kTriStride;
-          for (int g = 0; g < G; ++g) {
-            float t, u, v;
-            if (moller(slot + g * kTriStride, r, cap, t, u, v)) {
-              occ = true;
-              break;
-            }
-          }
+      for (int k = 0; k < 4; ++k) {
+        bool hit = slab_box(box[k], r, cap);
+        int field = enc[k] & 31;
+        if (hit && is_leaf(field) && gate.resident(enc[k] >> 5)) leaves |= 1u << k;
+        if (hit && field >= kInnerField) inner |= 1u << k;
+      }
+      while (leaves && !occ) {
+        int k = __ffs(leaves) - 1;
+        leaves &= leaves - 1;
+        int e = pick(k, enc[0], enc[1], enc[2], enc[3]);
+        const float* slot = tris + static_cast<int64_t>(gate.row(e >> 5)) * G * kTriStride;
+        int count = (e & 31) * G;
+#pragma unroll 4
+        for (int j = 0; j < count; ++j) {
+          Tri tr = load_tri(slot + j * kTriStride);
+          float t, u, v;
+          if (!occ && moller_tri(tr, r, cap, t, u, v)) occ = true;
         }
       }
-      // Any hit needs no order: slots are pushed 0..3, slot 3 on top.
+      if (!occ) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (box[k] && f.field[k] >= kInnerField) stack[sp++] = f.meta[k];
+        for (int k = 0; k < 4; ++k)
+          if ((inner >> k) & 1u) stack[sp++] = pick(k, enc[0], enc[1], enc[2], enc[3]) >> 5;
+      }
     }
   }
   occ_out[i] = occ;
+}
+
+// K3's group body: kGroup lanes walk one ray.
+template <class Gate>
+__global__ void any_fat4_group_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                                      const float* __restrict__ tmax, int tmax_stride,
+                                      const float* __restrict__ nodes,
+                                      const float* __restrict__ tris, int G, int n,
+                                      bool* __restrict__ occ_out, Gate gate) {
+  int i = (blockIdx.x * blockDim.x + threadIdx.x) / kGroup;
+  if (i >= n) return;  // the whole group
+  const int sub = threadIdx.x % kGroup;
+  const int base = (threadIdx.x & 31) - sub;
+  const unsigned group = ((1u << kGroup) - 1u) << base;
+  Ray r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1], d[3 * i + 2]);
+  float cap = tmax[i * tmax_stride];
+  bool occ = false;
+  if (!is_dead(r.ox, r.dx, r.dy, r.dz) && cap > kEps) {
+    int stack[kStackMax];
+    int sp = 0;
+    stack[sp++] = 0;
+    while (sp > 0) {
+      const float* row = nodes + static_cast<int64_t>(stack[--sp]) * kNodeStride;
+      // This lane's box, 6 floats at 24 * (sub % 4) bytes: 3 8-byte loads.
+      const float2* bp = reinterpret_cast<const float2*>(row + 6 * (sub & 3));
+      float2 b0 = __ldg(bp), b1 = __ldg(bp + 1), b2 = __ldg(bp + 2);
+      float4 q6 = __ldg(reinterpret_cast<const float4*>(row) + 6);
+      const Box bx = {b0.x, b0.y, b1.x, b1.y, b2.x, b2.y};
+      unsigned hits = (__ballot_sync(group, slab_box(bx, r, cap)) >> base) & 15u;
+      const int enc[4] = {__float_as_int(q6.x), __float_as_int(q6.y), __float_as_int(q6.z),
+                          __float_as_int(q6.w)};
+      unsigned leaves = 0, inner = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        bool hit = (hits >> k) & 1u;
+        int field = enc[k] & 31;
+        if (hit && is_leaf(field) && gate.resident(enc[k] >> 5)) leaves |= 1u << k;
+        if (hit && field >= kInnerField) inner |= 1u << k;
+      }
+      while (leaves) {
+        int k = __ffs(leaves) - 1;
+        leaves &= leaves - 1;
+        int e = pick(k, enc[0], enc[1], enc[2], enc[3]);
+        const float* slot = tris + static_cast<int64_t>(gate.row(e >> 5)) * G * kTriStride;
+        int count = (e & 31) * G;
+        // This lane's triangles j = sub, sub + kGroup, ... of the leaf.
+        bool hit = false;
+        for (int j = sub; j < count; j += kGroup) {
+          Tri tr = load_tri(slot + j * kTriStride);
+          float t, u, v;
+          if (moller_tri(tr, r, cap, t, u, v)) hit = true;
+        }
+        if (__ballot_sync(group, hit) != 0u) {
+          occ = true;
+          break;
+        }
+      }
+      if (occ) break;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if ((inner >> k) & 1u) stack[sp++] = pick(k, enc[0], enc[1], enc[2], enc[3]) >> 5;
+    }
+  }
+  if (sub == 0) occ_out[i] = occ;
 }
 
 // K8: one BVH2 node per visit over rows [n, 8] f32: lo.xyz, hi.xyz, then
@@ -746,6 +861,15 @@ __device__ __forceinline__ void push_fat_near_first(int* stack, int& sp, const F
   if (ok[nk]) stack[sp++] = f.meta[nk];
 }
 
+// The same from encodings in registers (K7b): the children in `inner`,
+// far first and near on top by the order meta om and the sign bits pos.
+__device__ __forceinline__ void push_fat_inner(int* stack, int& sp, const int (&enc)[2],
+                                               unsigned inner, int om, unsigned pos) {
+  const int far = near_first_bits(om, pos) ? 1 : 0;
+  if ((inner >> far) & 1u) stack[sp++] = (far ? enc[1] : enc[0]) >> 5;
+  if ((inner >> (1 - far)) & 1u) stack[sp++] = (far ? enc[0] : enc[1]) >> 5;
+}
+
 __global__ void closest_fat_kernel(const float* __restrict__ o, const float* __restrict__ d,
                                    const float* __restrict__ tmax, int tmax_stride,
                                    const float* __restrict__ nodes,
@@ -796,6 +920,15 @@ __global__ void closest_fat_kernel(const float* __restrict__ o, const float* __r
   v_out[i] = bv;
 }
 
+// K7b, the fused walk over fat2 rows, redesigned for Hopper with K2's
+// design: a 64-byte row as 4 16-byte loads right after the pop, boxes,
+// masks and encodings in registers, a triangle loaded once for both rays as
+// 5 8-byte loads, the leaf loop unrolled by 4 (combo_leaf), and for
+// launches up to group_rays() a group body (combo_fat_group_kernel).  Each
+// visits the same nodes and tests the same triangles in the same order as
+// shadow_closest_fat_plain, so tri, t, u, v and occ stay equal to it.  A
+// 1080p fat2 frame gives it one first-vertex launch (~443k rays on the
+// bench view) and two small ones (7.5k-59k rays).
 __global__ void combo_fat_kernel(const float* __restrict__ o, const float* __restrict__ b,
                                  const float* __restrict__ l, const float* __restrict__ tmax_b,
                                  int sb, const float* __restrict__ tmax_l, int sl,
@@ -818,40 +951,38 @@ __global__ void combo_fat_kernel(const float* __restrict__ o, const float* __res
   bool occ = false;
   if (live_b || live_l) {
     int stack[kStackMax];
+    const float4* rows = reinterpret_cast<const float4*>(nodes);
+    unsigned pos = pos_bits(rb);
     int sp = 0;
     stack[sp++] = 0;
     while (sp > 0) {
-      const float* row = nodes + static_cast<int64_t>(stack[--sp]) * kFatStride;
-      bool box_b[2], box_l[2];
+      const float4* row = rows + static_cast<int64_t>(stack[--sp]) * (kFatStride / 4);
+      float4 q0 = __ldg(row), q1 = __ldg(row + 1), q2 = __ldg(row + 2), q3 = __ldg(row + 3);
+      const Box box[2] = {{q0.x, q0.y, q0.z, q0.w, q1.x, q1.y},
+                          {q1.z, q1.w, q2.x, q2.y, q2.z, q2.w}};
+      const int enc[2] = {__float_as_int(q3.x), __float_as_int(q3.y)};
+      // The bounce hit is gated by the bounce box, the shadow hit by the
+      // shadow box and its own cap.
+      unsigned mb = 0, ml = 0, leaves = 0, inner = 0;
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
-        box_b[k] = live_b && slab(row, k, rb, bt);
-        box_l[k] = live_l && !occ && slab(row, k, rl, cap_l);
+        bool hb = live_b && slab_box(box[k], rb, bt);
+        bool hl = live_l && !occ && slab_box(box[k], rl, cap_l);
+        int field = enc[k] & 31;
+        mb |= static_cast<unsigned>(hb) << k;
+        ml |= static_cast<unsigned>(hl) << k;
+        if ((hb || hl) && is_leaf(field)) leaves |= 1u << k;
+        if ((hb || hl) && field >= kInnerField) inner |= 1u << k;
       }
-      FatFields f = decode_fat(row);
-      for (int k = 0; k < 2; ++k) {
-        if (!((box_b[k] || box_l[k]) && is_leaf(f.field[k]))) continue;
-        for (int s = 0; s < f.field[k]; ++s) {
-          const float* slot = tris + (static_cast<int64_t>(f.meta[k]) + s) * G * kTriStride;
-          for (int g = 0; g < G; ++g) {
-            const float* tv = slot + g * kTriStride;
-            float t, u, v;
-            // The bounce hit is gated by the bounce box, the shadow hit by
-            // the shadow box and its own cap.
-            if (box_b[k] && moller(tv, rb, bt, t, u, v)) {
-              bt = t;
-              btri = __float_as_int(__ldg(tv + 9));
-              bu = u;
-              bv = v;
-            }
-            if (box_l[k] && !occ && moller(tv, rl, cap_l, t, u, v)) occ = true;
-          }
-        }
+      // The left leaf child's slots, then the right one's.
+      while (leaves) {
+        int k = __ffs(leaves) - 1;
+        leaves &= leaves - 1;
+        int e = k ? enc[1] : enc[0];
+        combo_leaf(tris + static_cast<int64_t>(e >> 5) * G * kTriStride, (e & 31) * G,
+                   (mb >> k) & 1u, (ml >> k) & 1u, rb, rl, cap_l, bt, btri, bu, bv, occ);
       }
-      bool ok[2];
-#pragma unroll
-      for (int k = 0; k < 2; ++k) ok[k] = (box_b[k] || box_l[k]) && f.field[k] >= kInnerField;
-      push_fat_near_first(stack, sp, f, ok, rb.pos);
+      push_fat_inner(stack, sp, enc, inner, __float_as_int(q3.z), pos);
     }
   }
   t_out[i] = btri >= 0 ? bt : __int_as_float(0x7f800000);
@@ -859,6 +990,80 @@ __global__ void combo_fat_kernel(const float* __restrict__ o, const float* __res
   u_out[i] = bu;
   v_out[i] = bv;
   occ_out[i] = occ;
+}
+
+// K7b's group body, K2's applied to fat2 rows: kGroup lanes walk one ray.
+// Lanes 0-1 test the bounce ray against the two boxes and lanes 2-3 the
+// shadow ray (lanes 4-7 repeat them); a slot's triangles are dealt out to
+// the lanes (combo_group_slots).
+__global__ void combo_fat_group_kernel(const float* __restrict__ o, const float* __restrict__ b,
+                                       const float* __restrict__ l,
+                                       const float* __restrict__ tmax_b, int sb,
+                                       const float* __restrict__ tmax_l, int sl,
+                                       const float* __restrict__ nodes,
+                                       const float* __restrict__ tris, int G, int n,
+                                       float* __restrict__ t_out, int32_t* __restrict__ tri_out,
+                                       float* __restrict__ u_out, float* __restrict__ v_out,
+                                       bool* __restrict__ occ_out) {
+  int i = (blockIdx.x * blockDim.x + threadIdx.x) / kGroup;
+  if (i >= n) return;  // the whole group
+  const int sub = threadIdx.x % kGroup;
+  const int base = (threadIdx.x & 31) - sub;
+  const unsigned group = ((1u << kGroup) - 1u) << base;
+  float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
+  Ray rb = make_ray(ox, oy, oz, b[3 * i], b[3 * i + 1], b[3 * i + 2]);
+  Ray rl = make_ray(ox, oy, oz, l[3 * i], l[3 * i + 1], l[3 * i + 2]);
+  float bt = tmax_b[i * sb];
+  float cap_l = tmax_l[i * sl];
+  bool live_b = !is_dead(ox, rb.dx, rb.dy, rb.dz) && bt > kEps;
+  bool live_l = !is_dead(ox, rl.dx, rl.dy, rl.dz) && cap_l > kEps;
+  int btri = -1;
+  float bu = 0.0f, bv = 0.0f;
+  bool occ = false;
+  if (live_b || live_l) {
+    int stack[kStackMax];
+    unsigned pos = pos_bits(rb);
+    const bool shadow_lane = (sub & 2) != 0;
+    int sp = 0;
+    stack[sp++] = 0;
+    while (sp > 0) {
+      const float* row = nodes + static_cast<int64_t>(stack[--sp]) * kFatStride;
+      // This lane's box, 6 floats at 24 * (sub % 2) bytes: 3 8-byte loads.
+      const float2* bp = reinterpret_cast<const float2*>(row + 6 * (sub & 1));
+      float2 b0 = __ldg(bp), b1 = __ldg(bp + 1), b2 = __ldg(bp + 2);
+      float4 q3 = __ldg(reinterpret_cast<const float4*>(row) + 3);
+      const Box bx = {b0.x, b0.y, b1.x, b1.y, b2.x, b2.y};
+      bool hit = shadow_lane ? live_l && !occ && slab_box(bx, rl, cap_l)
+                             : live_b && slab_box(bx, rb, bt);
+      unsigned bits = __ballot_sync(group, hit) >> base;
+      unsigned mb = bits & 3u, ml = (bits >> 2) & 3u;
+      const int enc[2] = {__float_as_int(q3.x), __float_as_int(q3.y)};
+      unsigned leaves = 0, inner = 0;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        bool tested = ((mb | ml) >> k) & 1u;
+        int field = enc[k] & 31;
+        if (tested && is_leaf(field)) leaves |= 1u << k;
+        if (tested && field >= kInnerField) inner |= 1u << k;
+      }
+      while (leaves) {
+        int k = __ffs(leaves) - 1;
+        leaves &= leaves - 1;
+        int e = k ? enc[1] : enc[0];
+        combo_group_slots(tris + static_cast<int64_t>(e >> 5) * G * kTriStride, e & 31, G, sub,
+                          base, group, (mb >> k) & 1u, (ml >> k) & 1u, rb, rl, cap_l, bt, btri, bu,
+                          bv, occ);
+      }
+      push_fat_inner(stack, sp, enc, inner, __float_as_int(q3.z), pos);
+    }
+  }
+  if (sub == 0) {
+    t_out[i] = btri >= 0 ? bt : __int_as_float(0x7f800000);
+    tri_out[i] = btri;
+    u_out[i] = bu;
+    v_out[i] = bv;
+    occ_out[i] = occ;
+  }
 }
 
 __global__ void any_fat_kernel(const float* __restrict__ o, const float* __restrict__ d,
@@ -913,7 +1118,8 @@ inline int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
 // HBM3 at 700 W, chip_smoke.py --ab, each body on the same launch): 443k
 // rays (1080p) group 0.380 ms against 0.463; 788k (1440p) 0.707 against
 // 0.513; 1.77M (2160p) 1.414 against 0.850.  Every later launch (7.5k-59k
-// rays) is 2-4x faster as a group.
+// rays) is 2-4x faster as a group.  K3 and K7b (launch_any_fat4,
+// nb_combo_fat) take the same cutoff through launch_by_size.
 constexpr int64_t kGroupWaves = 16;
 constexpr int kMaxDevices = 64;
 
@@ -937,24 +1143,56 @@ cudaError_t group_rays(int64_t* rays) {
   return cudaSuccess;
 }
 
+// Enqueues a walk of n rays: group() (its group body, kGroup lanes a ray)
+// up to group_rays() rays, else thread() (one thread per ray).
+template <class Group, class Thread>
+int launch_by_size(int n, Group group, Thread thread) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  int64_t most = 0;
+  cudaError_t err = group_rays(&most);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= most) {
+    group();
+  } else {
+    thread();
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Gate>
+int launch_any_fat4(const float* o, const float* d, const float* tmax, int tmax_stride,
+                    const float* nodes, const float* tris, int G, int n, bool* occ, Gate gate,
+                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return launch_by_size(
+      n,
+      [&] {
+        any_fat4_group_kernel<<<grid_for(n * kGroup), kThreads, 0, st>>>(
+            o, d, tmax, tmax_stride, nodes, tris, G, n, occ, gate);
+      },
+      [&] {
+        any_fat4_kernel<<<grid_for(n), kThreads, 0, st>>>(o, d, tmax, tmax_stride, nodes, tris,
+                                                          G, n, occ, gate);
+      });
+}
+
 template <class Gate>
 int launch_combo_fat4(const float* o, const float* b, const float* l, const float* tmax_b, int sb,
                       const float* tmax_l, int sl, const float* nodes, const float* tris, int G,
                       int n, float* t, int32_t* tri, float* u, float* v, bool* occ, Gate gate,
                       void* stream) {
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  int64_t most = 0;
-  cudaError_t err = group_rays(&most);
-  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n <= most) {
-    combo_fat4_group_kernel<<<grid_for(n * kGroup), kThreads, 0, st>>>(
-        o, b, l, tmax_b, sb, tmax_l, sl, nodes, tris, G, n, t, tri, u, v, occ, gate);
-  } else {
-    combo_fat4_kernel<<<grid_for(n), kThreads, 0, st>>>(o, b, l, tmax_b, sb, tmax_l, sl, nodes,
-                                                        tris, G, n, t, tri, u, v, occ, gate);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_by_size(
+      n,
+      [&] {
+        combo_fat4_group_kernel<<<grid_for(n * kGroup), kThreads, 0, st>>>(
+            o, b, l, tmax_b, sb, tmax_l, sl, nodes, tris, G, n, t, tri, u, v, occ, gate);
+      },
+      [&] {
+        combo_fat4_kernel<<<grid_for(n), kThreads, 0, st>>>(o, b, l, tmax_b, sb, tmax_l, sl,
+                                                            nodes, tris, G, n, t, tri, u, v,
+                                                            occ, gate);
+      });
 }
 
 }  // namespace
@@ -980,18 +1218,14 @@ int nb_combo_fat4(const float* o, const float* b, const float* l, const float* t
                            AllSlots{}, stream);
 }
 
-// The most rays for which K2 (both builds) runs the group kernel on the
-// current device; one thread per ray above it.
-int nb_combo_fat4_group_rays(int64_t* rays) { return static_cast<int>(group_rays(rays)); }
+// The most rays for which K2, K3 (all their builds) and K7b run their group
+// bodies on the current device; one thread per ray above it.
+int nb_group_rays(int64_t* rays) { return static_cast<int>(group_rays(rays)); }
 
 int nb_any_fat4(const float* o, const float* d, const float* tmax, int tmax_stride,
                 const float* nodes, const float* tris, int G, int n, bool* occ,
                 void* stream) {
-  if (n > 0) {
-    any_fat4_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, d, tmax, tmax_stride, nodes, tris, G, n, occ, AllSlots{});
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_any_fat4(o, d, tmax, tmax_stride, nodes, tris, G, n, occ, AllSlots{}, stream);
 }
 
 // K6b: the same walks, intersecting only leaves whose first slot lies in
@@ -1019,11 +1253,8 @@ int nb_combo_fat4_slots(const float* o, const float* b, const float* l, const fl
 int nb_any_fat4_slots(const float* o, const float* d, const float* tmax, int tmax_stride,
                       const float* nodes, const float* tris, int G, int n, int slot_lo,
                       int slot_hi, bool* occ, void* stream) {
-  if (n > 0) {
-    any_fat4_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, d, tmax, tmax_stride, nodes, tris, G, n, occ, SlotRange{slot_lo, slot_hi});
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_any_fat4(o, d, tmax, tmax_stride, nodes, tris, G, n, occ,
+                         SlotRange{slot_lo, slot_hi}, stream);
 }
 
 // K7 over fat2 rows.
@@ -1040,11 +1271,17 @@ int nb_closest_fat(const float* o, const float* d, const float* tmax, int tmax_s
 int nb_combo_fat(const float* o, const float* b, const float* l, const float* tmax_b, int sb,
                  const float* tmax_l, int sl, const float* nodes, const float* tris, int G,
                  int n, float* t, int32_t* tri, float* u, float* v, bool* occ, void* stream) {
-  if (n > 0) {
-    combo_fat_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, b, l, tmax_b, sb, tmax_l, sl, nodes, tris, G, n, t, tri, u, v, occ);
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return launch_by_size(
+      n,
+      [&] {
+        combo_fat_group_kernel<<<grid_for(n * kGroup), kThreads, 0, st>>>(
+            o, b, l, tmax_b, sb, tmax_l, sl, nodes, tris, G, n, t, tri, u, v, occ);
+      },
+      [&] {
+        combo_fat_kernel<<<grid_for(n), kThreads, 0, st>>>(o, b, l, tmax_b, sb, tmax_l, sl,
+                                                           nodes, tris, G, n, t, tri, u, v, occ);
+      });
 }
 
 int nb_any_fat(const float* o, const float* d, const float* tmax, int tmax_stride,

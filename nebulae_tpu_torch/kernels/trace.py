@@ -813,12 +813,13 @@ def _check_tables(tables, dev, nodes_key="fat4nodes"):
         raise ValueError(f"traversal stack depth {tables['stack_depth']} outside the kernels' 1..{STACK_MAX}")
 
 
-def _check_wide_loads(tables):
-    """K1 and K2 read a fat4 row as 16-byte loads and a triangle as 8-byte
-    loads: a table whose start is not so aligned (a view at an odd offset)
-    is refused rather than read misaligned."""
-    if tables["fat4nodes"].data_ptr() % 16 or tables["tris"].data_ptr() % 8:
-        raise ValueError("fat4nodes must be 16-byte and tris 8-byte aligned for the fat4 walks' wide loads")
+def _check_wide_loads(tables, nodes_key="fat4nodes"):
+    """K1-K3 (and their paged and slot-gated builds) and K7b read a node row
+    as 16-byte loads and a triangle as 8-byte loads: a table whose start is
+    not so aligned (a view at an odd offset) is refused rather than read
+    misaligned."""
+    if tables[nodes_key].data_ptr() % 16 or tables["tris"].data_ptr() % 8:
+        raise ValueError(f"{nodes_key} must be 16-byte and tris 8-byte aligned for the walks' wide loads")
 
 
 def _cap_arg(t_max, n, dev):
@@ -870,14 +871,14 @@ def _closest(entry, counter, plain, o, d, tables, t_max, nodes_key="fat4nodes", 
              family_check=None):
     """Launch a closest-hit kernel (C entry `entry`, slot gate args after
     the ray count) and add one to counter.launches; CPU tensors run
-    `plain()`.  `family_check(tables)` is the kernel family's own check of
-    the tables.  No rays, or a scene without triangles, give miss records
+    `plain()`.  `family_check(tables, nodes_key)` is the kernel family's own
+    check of the tables.  No rays, or a scene without triangles, give miss records
     and launch nothing.  While counter.record is a list, each launch
     appends its rays and cap to it."""
     n, dev = _check_rays(o, d)
     _check_tables(tables, dev, nodes_key)
     if family_check is not None:
-        family_check(tables)
+        family_check(tables, nodes_key)
     if not _use_kernel(dev):
         return plain()
     if n == 0 or tables[nodes_key].shape[0] == 0:
@@ -895,10 +896,13 @@ def _closest(entry, counter, plain, o, d, tables, t_max, nodes_key="fat4nodes", 
     return out
 
 
-def _any(entry, counter, plain, o, d, tables, t_max, nodes_key="fat4nodes", gate=()):
+def _any(entry, counter, plain, o, d, tables, t_max, nodes_key="fat4nodes", gate=(),
+         family_check=None):
     """As _closest, for an any-hit kernel -> occluded [N] bool."""
     n, dev = _check_rays(o, d)
     _check_tables(tables, dev, nodes_key)
+    if family_check is not None:
+        family_check(tables, nodes_key)
     if not _use_kernel(dev):
         return plain()
     if n == 0 or tables[nodes_key].shape[0] == 0:
@@ -911,18 +915,19 @@ def _any(entry, counter, plain, o, d, tables, t_max, nodes_key="fat4nodes", gate
         int(tables["tris"].shape[1]), n, *gate, _ptr(occ), _stream(),
     ), entry)
     counter.launches += 1
+    _record(counter, o, d, t_max)
     return occ
 
 
 def _combo(entry, counter, plain, o, b, l, tables, t_max_b, t_max_l, nodes_key="fat4nodes", gate=(),
            family_check=None):
-    """As _closest, for the fused shadow+bounce kernel -> (hit, occluded);
-    `family_check(tables)` is the kernel family's own check of the tables.  While
-    counter.record is a list, each launch appends its rays and caps to it."""
+    """As _closest, for the fused shadow+bounce kernel -> (hit, occluded).
+    While counter.record is a list, each launch appends its rays and caps
+    to it."""
     n, dev = _check_rays(o, b, l)
     _check_tables(tables, dev, nodes_key)
     if family_check is not None:
-        family_check(tables)
+        family_check(tables, nodes_key)
     if not _use_kernel(dev):
         return plain()
     if n == 0 or tables[nodes_key].shape[0] == 0:
@@ -948,12 +953,12 @@ def _record(counter, *inputs):
         counter.record.append(tuple(x.clone() if torch.is_tensor(x) else x for x in inputs))
 
 
-def combo_group_rays() -> int:
-    """The most rays for which K2 (and its K6a / K6b builds) runs its group
-    kernel, 8 lanes per ray, on the current CUDA device; above it, one
-    thread per ray."""
+def group_rays() -> int:
+    """The most rays for which K2, K3 (and their K6a / K6b builds) and K7b
+    run their group bodies, several lanes per ray, on the current CUDA
+    device; above it, one thread per ray."""
     rays = ctypes.c_int64(0)
-    check(native().lib.nb_combo_fat4_group_rays(ctypes.byref(rays)), "nb_combo_fat4_group_rays")
+    check(native().lib.nb_group_rays(ctypes.byref(rays)), "nb_group_rays")
     return int(rays.value)
 
 
@@ -967,7 +972,8 @@ def closest_hit_fat4(o, d, tables: dict, t_max=float("inf")):
 def any_hit_fat4(o, d, tables: dict, t_max=float("inf")):
     """K3: occlusion within t_max -> occluded [N] bool."""
     return _any("nb_any_fat4", any_hit_fat4,
-                lambda: any_hit_fat4_plain(o, d, tables, t_max), o, d, tables, t_max)
+                lambda: any_hit_fat4_plain(o, d, tables, t_max), o, d, tables, t_max,
+                family_check=_check_wide_loads)
 
 
 def shadow_closest_fat4(o, b, l, tables: dict, t_max_b=float("inf"), t_max_l=float("inf")):
@@ -994,7 +1000,8 @@ def closest_hit_fat4_paged(o, d, tables: dict, t_max=float("inf")):
 def any_hit_fat4_paged(o, d, tables: dict, t_max=float("inf")):
     """K6a any hit: K3 over the paged route's table."""
     return _any("nb_any_fat4", any_hit_fat4_paged,
-                lambda: any_hit_fat4_plain(o, d, tables, t_max), o, d, tables, t_max)
+                lambda: any_hit_fat4_plain(o, d, tables, t_max), o, d, tables, t_max,
+                family_check=_check_wide_loads)
 
 
 def shadow_closest_fat4_paged(o, b, l, tables: dict, t_max_b=float("inf"), t_max_l=float("inf")):
@@ -1025,7 +1032,7 @@ def any_hit_fat4_slots(o, d, chunk: dict, t_max=float("inf")):
     sr = _slot_range(chunk)
     return _any("nb_any_fat4_slots", any_hit_fat4_slots,
                 lambda: any_hit_fat4_plain(o, d, chunk, t_max, slot_range=sr),
-                o, d, chunk, t_max, gate=sr)
+                o, d, chunk, t_max, gate=sr, family_check=_check_wide_loads)
 
 
 def shadow_closest_fat4_slots(o, b, l, chunk: dict, t_max_b=float("inf"), t_max_l=float("inf")):
@@ -1058,7 +1065,7 @@ def shadow_closest_fat(o, b, l, tables: dict, t_max_b=float("inf"), t_max_l=floa
     tables.  Returns (hit dict, occluded [N])."""
     return _combo("nb_combo_fat", shadow_closest_fat,
                   lambda: shadow_closest_fat_plain(o, b, l, tables, t_max_b, t_max_l),
-                  o, b, l, tables, t_max_b, t_max_l, nodes_key="fatnodes")
+                  o, b, l, tables, t_max_b, t_max_l, nodes_key="fatnodes", family_check=_check_wide_loads)
 
 
 # K8: one node per visit over pack_bvh_nodes' tables.

@@ -8,8 +8,10 @@ ragged edges, on the CPU.
     start is not so aligned.  A triangle chunk, the view tris[lo:hi], is
     always 8-byte aligned and is taken for every tri_group: the chained
     slot-gated walks over such views equal JAX's interpreted kernel.
-  * The closest-hit walk (K1, K6a, K6b) reads rows and triangles as K2
-    does, and its wrappers refuse the same tables before they dispatch.
+  * The closest-hit walk (K1, K6a, K6b) and the any-hit walk (K3, K6a,
+    K6b) read rows and triangles as K2 does, and their wrappers refuse the
+    same tables before they dispatch; so does the fat2 fused walk (K7b),
+    with the node faults on its fatnodes table.
   * K4 and K5 refuse a step below 1.
   * K5's plain version on a ragged 13x11 image, where the taps of steps 4
     and 8 reach past every edge, against jax.vjp of the interpreted Pallas
@@ -25,6 +27,8 @@ import torch
 
 FUSED = ("shadow_closest_fat4", "shadow_closest_fat4_paged", "shadow_closest_fat4_slots")
 CLOSEST = ("closest_hit_fat4", "closest_hit_fat4_paged", "closest_hit_fat4_slots")
+ANY = ("any_hit_fat4", "any_hit_fat4_paged", "any_hit_fat4_slots")
+FAT2_FUSED = "shadow_closest_fat"
 
 
 def _soup(n_tris=400, seed=3):
@@ -43,22 +47,23 @@ def _rays(n, seed=7):
     return torch.from_numpy(o), torch.from_numpy(d[:, 0].copy()), torch.from_numpy(d[:, 1].copy())
 
 
-def _tables(tri_group=8):
+def _tables(tri_group=8, wide=4):
     from nebulae_tpu_torch.bvh.builder import build_bvh
-    from nebulae_tpu_torch.kernels.trace import pack_bvh_fat4, tables_to
+    from nebulae_tpu_torch.kernels.trace import pack_bvh_fat, pack_bvh_fat4, tables_to
 
     tri = _soup()
-    return tables_to(pack_bvh_fat4(build_bvh(tri, max_leaf=15), tri, tri_group), "cpu")
+    pack = pack_bvh_fat4 if wide == 4 else pack_bvh_fat
+    return tables_to(pack(build_bvh(tri, max_leaf=15), tri, tri_group), "cpu")
 
 
 def _call(name, o, b, l, tables):
-    """A fused wrapper on (o, b, l), or a closest-hit one on (o, b)."""
+    """A fused wrapper on (o, b, l), or a closest- or any-hit one on (o, b)."""
     from nebulae_tpu_torch.kernels import trace as kt
 
     if name.endswith("_slots"):
         n = tables["tris"].shape[0]
         tables = {**tables, "slot_lo": 0, "slot_hi": n}
-    if name in CLOSEST:
+    if name in CLOSEST or name in ANY:
         return getattr(kt, name)(o, b, tables)
     return getattr(kt, name)(o, b, l, tables)
 
@@ -78,25 +83,27 @@ def _strided(t):
     return wide[..., ::2]
 
 
+# Each fault on tables t whose node table is t[nodes].
 BAD_TABLES = {
-    "stack_too_deep": lambda t: {**t, "stack_depth": 129},
-    "stack_empty": lambda t: {**t, "stack_depth": 0},
-    "nodes_not_contiguous": lambda t: {**t, "fat4nodes": _strided(t["fat4nodes"])},
-    "tris_not_contiguous": lambda t: {**t, "tris": _strided(t["tris"])},
-    "nodes_misaligned": lambda t: {**t, "fat4nodes": _misaligned(t["fat4nodes"])},
-    "tris_misaligned": lambda t: {**t, "tris": _misaligned(t["tris"])},
+    "stack_too_deep": lambda t, nodes: {**t, "stack_depth": 129},
+    "stack_empty": lambda t, nodes: {**t, "stack_depth": 0},
+    "nodes_not_contiguous": lambda t, nodes: {**t, nodes: _strided(t[nodes])},
+    "tris_not_contiguous": lambda t, nodes: {**t, "tris": _strided(t["tris"])},
+    "nodes_misaligned": lambda t, nodes: {**t, nodes: _misaligned(t[nodes])},
+    "tris_misaligned": lambda t, nodes: {**t, "tris": _misaligned(t["tris"])},
 }
 
 
 def _refuses_bad_tables_before_dispatch(name, fault):
     from nebulae_tpu_torch.kernels import trace as kt
 
-    tables = _tables()
+    nodes = "fatnodes" if name == FAT2_FUSED else "fat4nodes"
+    tables = _tables(wide=2 if name == FAT2_FUSED else 4)
     o, b, l = _rays(64)
     _call(name, o, b, l, tables)  # the tables as packed are taken
-    bad = BAD_TABLES[fault](tables)
+    bad = BAD_TABLES[fault](tables, nodes)
     if fault.endswith("misaligned"):
-        key = "fat4nodes" if fault.startswith("nodes") else "tris"
+        key = nodes if fault.startswith("nodes") else "tris"
         assert bad[key].is_contiguous() and torch.equal(bad[key], tables[key])
     before = getattr(kt, name).launches
     with pytest.raises(ValueError):
@@ -114,6 +121,17 @@ def test_fused_walk_refuses_bad_tables_before_dispatch(name, fault):
 @pytest.mark.parametrize("name", CLOSEST)
 def test_closest_walk_refuses_bad_tables_before_dispatch(name, fault):
     _refuses_bad_tables_before_dispatch(name, fault)
+
+
+@pytest.mark.parametrize("fault", list(BAD_TABLES))
+@pytest.mark.parametrize("name", ANY)
+def test_any_walk_refuses_bad_tables_before_dispatch(name, fault):
+    _refuses_bad_tables_before_dispatch(name, fault)
+
+
+@pytest.mark.parametrize("fault", list(BAD_TABLES))
+def test_fat2_fused_walk_refuses_bad_tables_before_dispatch(fault):
+    _refuses_bad_tables_before_dispatch(FAT2_FUSED, fault)
 
 
 @pytest.mark.parametrize("tri_group, n_tris", [(1, 800), (3, 1500), (8, 1500)])
