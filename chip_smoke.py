@@ -40,13 +40,14 @@ Phases (any failure raises and exits non-zero):
               train steps; its fused and any-hit walks at the stress shapes
               of phase 4.  The same scene and BVH with bvh_wide=2 (fat2
               subtree chunks): 1 + 3 frames held against the paged frames,
-              one profiled.  A 12-triangle box with tracer="pallas" (the
-              BVH root is a leaf): a 1080p frame through K8, held against
-              the brute-force frame
+              one profiled (K7a, K7b, K7c and K8 apart).  A 12-triangle box
+              with tracer="pallas" (the BVH root is a leaf): a 1080p frame
+              through K8, held against the brute-force frame, one profiled
   8. fat2     bvh_wide=2 and dynamic scenes.  The bench scene's fat2 table:
               K7 (fat2 closest, fused and any) against its plain versions
-              and against K1-K3 at the phase-4 shapes, K7b also at the
-              stress shapes and on each launch of a 1080p fat2 frame, 1
+              and against K1-K3 at the phase-4 shapes and at the stress
+              shapes (K7b and K7c also one past their group bodies'
+              limit), K7b and K7c on each launch of a 1080p fat2 frame, 1
               warm-up and 3
               timed 1080p frames held against the fat4 frame, one profiled
               frame, and 1 warm-up and 3 timed train steps.  The 247k scene
@@ -68,21 +69,21 @@ compares source trees in one session on one GPU instead.  A TREE is a
 directory that holds a `nebulae_tpu_torch/` package: this checkout, or an
 unpacked `git archive` of another commit.  One process of this checkout
 builds the bench scene's BVH and saves it, with K2's and K3's launches in
-one bench-scene frame at each of AB_SIZES and K7b's in one 1080p
+one bench-scene frame at each of AB_SIZES and K7b's and K7c's in one 1080p
 bvh_wide=2 frame on that BVH, taken through the wrappers' record hooks.
 Then each tree runs in turn, A B B A per round, in a fresh process that
 builds its kernels, makes phase 4's inputs as phase 4 does on the saved
-BVH (so every tree walks the same tree), and times K1 on the 1080p
-primary rays (a frame's own launch), K2, K3 and K7b at phase 4's shape
-(2^21 rays) and on each saved launch, K3 and K7b on strided subsets of
-those rays (AB_SWEEP), and K4 and K5 at steps 1, 2, 4 and 8.  Where the
-tree's kernel has a group body, each of its launches is also timed with
-the other body: split into launches the group body takes, or padded with
-dead rays past them; the results must equal the launch's own.  Prints the
-card's name and power limit, one JSON line per process, each tree's
-medians (K4 and K5 per step) and output digests (K1, K2, K3, K7b, K4, K5
-and every saved launch), and which kernels' SASS (`cuobjdump -sass`)
-equals the first tree's.
+BVH (so every tree walks the same tree), and times K1 and K7a on the
+1080p primary rays (a frame's own launch), K2, K3, K7b and K7c at phase
+4's shape (2^21 rays) and on each saved launch, K3, K7b and K7c on
+strided subsets of those rays (AB_SWEEP), and K4 and K5 at steps 1, 2, 4
+and 8.  Where the tree's kernel has a group body, each of its launches is
+also timed with the other body: split into launches the group body takes,
+or padded with dead rays past them; the results must equal the launch's
+own.  Prints the card's name and power limit, one JSON line per process,
+each tree's medians (K4 and K5 per step) and output digests (K1, K7a, K2,
+K3, K7b, K7c, K4, K5 and every saved launch), and which kernels' SASS
+(`cuobjdump -sass`) equals the first tree's.
 """
 
 from __future__ import annotations
@@ -510,7 +511,8 @@ def _grad_report(opt) -> dict:
 # Kernel names as the profiler shows them; "combo_fat4", "any_fat4" and
 # "combo_fat_" take both bodies of K2, K3 and K7b.
 FAT4_KERNELS = ("closest_fat4_kernel", "combo_fat4", "any_fat4", "atrous_fwd_kernel")
-FAT2_KERNELS = ("closest_fat_kernel", "combo_fat_", "any_fat_kernel", "atrous_fwd_kernel")
+FAT2_KERNELS = ("closest_fat_kernel", "combo_fat_", "any_fat_", "atrous_fwd_kernel")
+NODE_KERNELS = ("closest_node_kernel", "any_node_kernel")
 
 
 def train_phase(renderer, cam, cfg, wrappers, kernel_names=FAT4_KERNELS) -> dict:
@@ -957,7 +959,8 @@ def large_phase(base_cfg) -> tuple[dict, dict]:
         f"{[round(t, 2) for t in times4]}); launches {json.dumps({k: v for k, v in n.items() if v})}")
     assert n["closest_hit_fat"] > 0 and n["shadow_closest_fat"] > 0 and n["any_hit_fat"] > 0, "K7 chains idle"
     hold_frame("fat2 huge frame", out2, out4, "the 2M paged fat4 frame")
-    profile_frame(lambda: r2f.render(cam_obj2), FAT2_KERNELS, ms2f, what="fat2 huge frame")
+    # K7a, K7b, K7c and K8 (the one-node chunks) each apart.
+    profile_frame(lambda: r2f.render(cam_obj2), FAT2_KERNELS + NODE_KERNELS, ms2f, what="fat2 huge frame")
     del out2, out4, r2f, fs2, bvh2
     torch.cuda.empty_cache()
     clock.done("huge fat2 frames")
@@ -982,6 +985,7 @@ def large_phase(base_cfg) -> tuple[dict, dict]:
     log(f"box frame (one-node route): {mean_ms:.2f} ms, hit {float(out['hit'].float().mean()):.3f}; against "
         f"brute force {int((out['hit'] != brute['hit']).sum())} hit decisions differ, {float(close):.6f} "
         f"of pixels agree; launches {json.dumps({k: v for k, v in n.items() if v})}")
+    profile_frame(lambda: rb8.render(cam_box), NODE_KERNELS + ("atrous_fwd_kernel",), mean_ms, what="box frame")
     cam_box_arrays = make_camera_arrays(cam_box, WIDTH, HEIGHT, dev)
     log(f"box train step: launches {json.dumps(step_launches(rb8, cam_box_arrays, wrappers))}")
     clock.done("box frame")
@@ -1130,26 +1134,46 @@ def fat2_phase(base_cfg, fs, bvh) -> tuple[dict, dict]:
         log(f"{tag}: kernel {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms ({h.by}), "
             f"max err {h.err:.3g}, work {h.work}")
 
-    # K7b at the stress shapes, and on each launch of one 1080p fat2 frame
-    # (the route's own launches: the kernels line reports these).
+    # K7a at the stress shapes (one body), K7b and K7c with both bodies, and
+    # K7b and K7c on each launch of one 1080p fat2 frame (the route's own
+    # launches: the kernels line reports these).
+    def k7a(a, b, t):
+        return kt.closest_hit_fat(a, b, tab, t)
+
+    def k7a_plain(a, b, t, w):
+        return kt.closest_hit_fat_plain(a, b, tab, t, work=w)
+
     def k7b(a, b, l_, tb, tl):
         return kt.shadow_closest_fat(a, b, l_, tab, tb, tl)
 
     def k7b_plain(a, b, l_, tb, tl, w):
         return kt.shadow_closest_fat_plain(a, b, l_, tab, tb, tl, work=w)
 
+    def k7c(a, b, t):
+        return kt.any_hit_fat(a, b, tab, t)
+
+    def k7c_plain(a, b, t, w):
+        return kt.any_hit_fat_plain(a, b, tab, t, work=w)
+
+    stress("K7a", k7a, k7a_plain, (o, d), 1, two_bodies=False)
     stress("K7b", k7b, k7b_plain, (ro, rb, rl), 2)
-    (k7b_launches,) = recorded_launches(lambda: r2.render(cam_obj), kt.shadow_closest_fat)
+    stress("K7c", k7c, k7c_plain, (ro, rl), 1)
+    k7b_launches, k7c_launches = recorded_launches(lambda: r2.render(cam_obj), kt.shadow_closest_fat,
+                                                   kt.any_hit_fat)
     r2.state = init_frame_state(r2.cfg, r2.device)
-    h = Held()
-    for i, (a, b, l_, tb, tl) in enumerate(k7b_launches):
-        ms = h.ms
-        hold_combo(h, f"K7b frame launch {i}", k7b, k7b_plain, a, b, l_, tab, tb, tl)
-        log(f"K7b frame launch {i}: {a.shape[0]} rays, kernel {h.ms - ms:.4f} ms")
-    report["shadow_closest_fat"] = h.entry()
-    log(f"K7b on a fat2 frame's {len(k7b_launches)} launches: kernel {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, "
-        f"bound {h.bound:.4f} ms ({h.by}), max err {h.err:.3g}, work {h.work}")
-    del k7b_launches
+    # A record is (rays..., caps...): 3 rays for the fused walk, 2 for any hit.
+    for name, tag, hold, walk, plain, n_rays, launches_ in (
+            ("shadow_closest_fat", "K7b", hold_combo, k7b, k7b_plain, 3, k7b_launches),
+            ("any_fat", "K7c", hold_any, k7c, k7c_plain, 2, k7c_launches)):
+        h = Held()
+        for i, rec in enumerate(launches_):
+            ms = h.ms
+            hold(h, f"{tag} frame launch {i}", walk, plain, *rec[:n_rays], tab, *rec[n_rays:])
+            log(f"{tag} frame launch {i}: {rec[0].shape[0]} rays, kernel {h.ms - ms:.4f} ms")
+        report[name] = h.entry()
+        log(f"{tag} on a fat2 frame's {len(launches_)} launch(es): kernel {h.ms:.3f} ms, plain "
+            f"{h.plain_ms:.1f} ms, bound {h.bound:.4f} ms ({h.by}), max err {h.err:.3g}, work {h.work}")
+    del k7b_launches, k7c_launches
     # The same rays through K1-K3 over the fat4 table: the same t and occ
     # (the two layouts may keep another triangle only at an exact t tie).
     one = kt.closest_hit_fat4(o, d, t4)
@@ -1281,8 +1305,8 @@ BVH_FIELDS = ("node_lo", "node_hi", "node_first", "node_count", "node_skip", "no
 
 def ab_capture(path: str) -> None:
     """Save the bench scene's BVH, K2's and K3's launches in one bench-scene
-    frame at each of AB_SIZES, and K7b's launches in one 1080p bvh_wide=2
-    frame on the same BVH."""
+    frame at each of AB_SIZES, and K7b's and K7c's launches in one 1080p
+    bvh_wide=2 frame on the same BVH."""
     import dataclasses
 
     import torch
@@ -1298,9 +1322,9 @@ def ab_capture(path: str) -> None:
         k2[f"{w}x{h}"], k3[f"{w}x{h}"] = recorded_launches(
             lambda: renderer.render(bench_camera(fs)), kt.shadow_closest_fat4, kt.any_hit_fat4)
     fat2 = Renderer(fs, dataclasses.replace(cfg, bvh_wide=2), bvh=bvh)
-    (k7b,) = recorded_launches(lambda: fat2.render(bench_camera(fs)), kt.shadow_closest_fat)
+    k7b, k7c = recorded_launches(lambda: fat2.render(bench_camera(fs)), kt.shadow_closest_fat, kt.any_hit_fat)
     torch.save({"bvh": {k: torch.from_numpy(getattr(bvh, k)) for k in BVH_FIELDS},
-                "frames": k2, "k3_frames": k3, "k7b_frame": k7b}, path)
+                "frames": k2, "k3_frames": k3, "k7b_frame": k7b, "k7c_frame": k7c}, path)
 
 
 def _digest(*tensors) -> str:
@@ -1413,15 +1437,15 @@ def _ab_launch(walk, n_rays, args, most, runs) -> dict:
     return row
 
 
-# --ab: K3's and K7b's bodies on strided subsets of phase 4's sorted rays,
-# to place the cutoff between them.
+# --ab: K3's, K7b's and K7c's bodies on strided subsets of phase 4's sorted
+# rays, to place the cutoff between them.
 AB_SWEEP = (1 << 17, 1 << 18, 1 << 19, 1 << 20)
 
 
 def ab_child(tree: str, path: str, runs: int) -> dict:
     """Build `tree`'s kernels and time them: on phase 4's inputs, made as
-    phase 4 makes them, and on the saved launches of K2, K3 and K7b (each
-    also with its other body where the tree's kernel has two)."""
+    phase 4 makes them, and on the saved launches of K2, K3, K7b and K7c
+    (each also with its other body where the tree's kernel has two)."""
     sys.path.insert(0, tree)
     import dataclasses
 
@@ -1458,6 +1482,7 @@ def ab_child(tree: str, path: str, runs: int) -> dict:
     names = " ".join(sass(tree))
     most_k3 = most if "any_fat4_group_kernel" in names else None
     most_k7b = most if "combo_fat_group_kernel" in names else None
+    most_k7c = most if "any_fat_group_kernel" in names else None
 
     def k2(a, b, l_, tb=float("inf"), tl=float("inf")):
         return kt.shadow_closest_fat4(a, b, l_, tables, tb, tl)
@@ -1468,14 +1493,21 @@ def ab_child(tree: str, path: str, runs: int) -> dict:
     def k7b(a, b, l_, tb=float("inf"), tl=float("inf")):
         return kt.shadow_closest_fat(a, b, l_, fat2, tb, tl)
 
+    def k7c(a, b, t=float("inf")):
+        return kt.any_hit_fat(a, b, fat2, t)
+
     hit, occ = k2(ro, rb, rl)
     res["k2_digest"] = _digest(hit["t"], hit["tri"], hit["u"], hit["v"], occ)
     res["k2_phase4_ms"] = timed_ms(lambda: k2(ro, rb, rl), runs)
-    hit = kt.closest_hit_fat4(o, d, tables)
-    res["k1_digest"] = _digest(hit["t"], hit["tri"], hit["u"], hit["v"])
-    res["k1_ms"] = timed_ms(lambda: kt.closest_hit_fat4(o, d, tables), runs)
+    # K1 and K7a (one body each) on the 1080p primary rays, a frame's own
+    # launch, over the fat4 and the fat2 table.
+    for name, walk in (("k1", lambda a, b: kt.closest_hit_fat4(a, b, tables)),
+                       ("k7a", lambda a, b: kt.closest_hit_fat(a, b, fat2))):
+        row = _ab_launch(walk, 2, (o, d), None, runs)
+        res[f"{name}_digest"], res[f"{name}_ms"], res[name] = row["digest"], row["ms"], row
     for name, walk, n_rays, args, two in (("k3", k3, 2, (ro, rl), most_k3),
-                                          ("k7b", k7b, 3, (ro, rb, rl), most_k7b)):
+                                          ("k7b", k7b, 3, (ro, rb, rl), most_k7b),
+                                          ("k7c", k7c, 2, (ro, rl), most_k7c)):
         row = _ab_launch(walk, n_rays, args, two, runs)
         res[f"{name}_digest"] = row["digest"]
         res[f"{name}_phase4_ms"] = row["ms"]
@@ -1490,6 +1522,7 @@ def ab_child(tree: str, path: str, runs: int) -> dict:
     res["k3_frames"] = {size: [_ab_launch(k3, 2, c, most_k3, runs) for c in launches]
                         for size, launches in saved["k3_frames"].items()}
     res["k7b_frame"] = [_ab_launch(k7b, 3, c, most_k7b, runs) for c in saved["k7b_frame"]]
+    res["k7c_frame"] = [_ab_launch(k7c, 2, c, most_k7c, runs) for c in saved["k7c_frame"]]
     phi = (cfg.svgf_phi_color, cfg.svgf_phi_normal, cfg.svgf_phi_depth)
     gen = torch.Generator(device="cuda").manual_seed(99)
     digests = {"k4": [], "k5": []}
@@ -1561,7 +1594,7 @@ def ab_main(argv) -> int:
                     if ln.startswith("{")][-1]
             results.append(json.loads(line))
             log(line)
-    keys = ("k1_ms", "k2_phase4_ms", "k3_phase4_ms", "k7b_phase4_ms", "k4_ms", "k5_ms",
+    keys = ("k1_ms", "k7a_ms", "k2_phase4_ms", "k3_phase4_ms", "k7b_phase4_ms", "k7c_phase4_ms", "k4_ms", "k5_ms",
             *(f"k{k}_step{s}_ms" for k in (4, 5) for s in (1, 2, 4, 8)))
 
     def rows_median(rs, get):
@@ -1578,17 +1611,20 @@ def ab_main(argv) -> int:
         rs = [r for r in results if r["tree"] == tree]
         summary = {k: statistics.median(r[k] for r in rs) for k in keys}
         summary["group_rays"] = rs[0]["group_rays"]
-        for name in ("k3", "k7b"):
+        for name in ("k1", "k7a"):
+            summary[name] = rows_median(rs, lambda r: [r[name]])[0]
+        for name in ("k3", "k7b", "k7c"):
             summary[f"{name}_phase4"] = rows_median(rs, lambda r: [r[f"{name}_phase4"]])[0]
             summary[f"{name}_sweep"] = rows_median(rs, lambda r: r[f"{name}_sweep"])
         for size in rs[0]["k2_frames"]:
             summary[f"k2 {size}"] = rows_median(rs, lambda r: r["k2_frames"][size])
             summary[f"k3 {size}"] = rows_median(rs, lambda r: r["k3_frames"][size])
-        summary["k7b 1920x1080 fat2"] = rows_median(rs, lambda r: r["k7b_frame"])
+        for name in ("k7b", "k7c"):
+            summary[f"{name} 1920x1080 fat2"] = rows_median(rs, lambda r: r[f"{name}_frame"])
         summary["digests"] = sorted({
-            (*(r[f"{k}_digest"] for k in ("k1", "k2", "k3", "k7b", "k4", "k5")),
+            (*(r[f"{k}_digest"] for k in ("k1", "k7a", "k2", "k3", "k7b", "k7c", "k4", "k5")),
              *(c["digest"] for f in ("k2_frames", "k3_frames") for rows in r[f].values() for c in rows),
-             *(c["digest"] for c in r["k7b_frame"])) for r in rs})
+             *(c["digest"] for f in ("k7b_frame", "k7c_frame") for c in r[f])) for r in rs})
         log(f"{tree}: {json.dumps(summary)}")
     base = sass(args.trees[0])
     for tree in args.trees[1:]:

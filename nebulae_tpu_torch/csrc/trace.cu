@@ -94,6 +94,25 @@
 // small launches, so all three group bodies keep kGroup = 8.  Each group
 // body still beats one thread per ray at 524,288 rays and loses at 2^20, as
 // K2's does: the cutoff stays.
+// K7a (closest_fat_kernel) took K1's levers over fat2 rows, with one thread
+// per ray, and K7c (any_fat_kernel, any_fat_group_kernel) K3's two bodies
+// behind the same cutoff; K1 and K7a share closest_leaf, K3 and K7c
+// any_leaf and any_leaf_group.  Device time against the parent's kernels
+// on the same launches in one chip_smoke.py --ab session (A B B A, two
+// rounds; H100 80GB HBM3 at 700 W):
+//   - K7a on the 1080p primary rays over the fat2 table 0.411 -> 0.313 ms
+//     (64 registers, 50% est. occupancy): 1.31x, where K1 took 1.52x from
+//     the same levers;
+//   - K7c on a 1080p fat2 frame's last-vertex launch (1,169 rays) 0.164 ->
+//     0.026 ms (group body, 63 registers), at 2^21 rays (thread body, 54
+//     registers) 0.300 -> 0.269.  Its group body wins at 2^19 rays (0.158
+//     against 0.181) and loses at 2^20 (0.312 against 0.192): the cutoff
+//     stays.
+// Tried and dropped, as a third tree in a second session: the next node
+// kept in a register, since a binary walk pops right after each push (K7a
+// 0.318 against 0.313, K7c at 2^21 rays 0.268 against 0.266).  K1's SASS
+// moved with closest_leaf and its time did not (0.262 both); K3's SASS is
+// unchanged.
 //
 // Build with --fmad=false: the plain PyTorch version rounds after every
 // multiply and add, and nvcc would otherwise contract a*b-c into an FMA.
@@ -174,11 +193,6 @@ __device__ __forceinline__ bool moller(const float* __restrict__ tv, const Ray& 
   t = ((e2x * qx + e2y * qy) + e2z * qz) * inv_det;
   return (fabsf(det) >= kEps) && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
          (t > kEps) && (t < cap);
-}
-
-// True when the first node of an (om-described) pair is nearer along d.
-__device__ __forceinline__ bool near_first(int om, const bool* pos) {
-  return pos[om >> 1] == ((om & 1) != 0);
 }
 
 __device__ __forceinline__ bool is_leaf(int field) {
@@ -265,7 +279,8 @@ __device__ __forceinline__ unsigned pos_bits(const Ray& r) {
          static_cast<unsigned>(r.pos[2]) << 2;
 }
 
-// near_first() over pos_bits().
+// True when the first node of an (om-described) pair is nearer along the
+// direction whose sign bits are pos.
 __device__ __forceinline__ bool near_first_bits(int om, unsigned pos) {
   return ((pos >> (om >> 1)) & 1u) == static_cast<unsigned>(om & 1);
 }
@@ -285,6 +300,39 @@ __device__ __forceinline__ void push_inner(int* stack, int& sp, const int (&enc)
     int k = order[m];
     if ((inner >> k) & 1u) stack[sp++] = pick(k, enc[0], enc[1], enc[2], enc[3]) >> 5;
   }
+}
+
+// One leaf's `count` triangles from `slot` for the closest-hit walks (K1,
+// K7a): each test under the running best t, the leaf loop unrolled by 4 so
+// that the next triangles' loads overlap this one's test.
+__device__ __forceinline__ void closest_leaf(const float* __restrict__ slot, int count, const Ray& r,
+                                             float& bt, int& btri, float& bu, float& bv) {
+#pragma unroll 4
+  for (int j = 0; j < count; ++j) {
+    Tri tr = load_tri(slot + j * kTriStride);
+    float t, u, v;
+    if (moller_tri(tr, r, bt, t, u, v)) {
+      bt = t;
+      btri = tr.id;
+      bu = u;
+      bv = v;
+    }
+  }
+}
+
+// One leaf's `count` triangles from `slot` for the any-hit walks' one-thread
+// bodies (K3, K7c): true at the first hit under cap; later triangles skip
+// their test.
+__device__ __forceinline__ bool any_leaf(const float* __restrict__ slot, int count, const Ray& r,
+                                         float cap) {
+  bool occ = false;
+#pragma unroll 4
+  for (int j = 0; j < count; ++j) {
+    Tri tr = load_tri(slot + j * kTriStride);
+    float t, u, v;
+    if (!occ && moller_tri(tr, r, cap, t, u, v)) occ = true;
+  }
+  return occ;
 }
 
 // One leaf's `count` triangles from `slot` for the fused walks' one-thread
@@ -365,19 +413,8 @@ __global__ void closest_fat4_kernel(const float* __restrict__ o, const float* __
         int k = __ffs(leaves) - 1;
         leaves &= leaves - 1;
         int e = pick(k, enc[0], enc[1], enc[2], enc[3]);
-        const float* slot = tris + static_cast<int64_t>(gate.row(e >> 5)) * G * kTriStride;
-        int count = (e & 31) * G;
-#pragma unroll 4
-        for (int j = 0; j < count; ++j) {
-          Tri tr = load_tri(slot + j * kTriStride);
-          float t, u, v;
-          if (moller_tri(tr, r, bt, t, u, v)) {
-            bt = t;
-            btri = tr.id;
-            bu = u;
-            bv = v;
-          }
-        }
+        closest_leaf(tris + static_cast<int64_t>(gate.row(e >> 5)) * G * kTriStride, (e & 31) * G, r,
+                     bt, btri, bu, bv);
       }
       push_inner(stack, sp, enc, inner, __float_as_int(q7.x), pos);
     }
@@ -588,6 +625,21 @@ __global__ void combo_fat4_group_kernel(const float* __restrict__ o, const float
   }
 }
 
+// One leaf's `count` triangles from `slot` for the any-hit walks' group
+// bodies (K3, K7c): each lane tests its triangles j = sub, sub + kGroup,
+// ... against cap, and one ballot gives the group's answer.  Every lane of
+// the group calls it with the same arguments except `sub`.
+__device__ __forceinline__ bool any_leaf_group(const float* __restrict__ slot, int count, int sub,
+                                               unsigned group, const Ray& r, float cap) {
+  bool hit = false;
+  for (int j = sub; j < count; j += kGroup) {
+    Tri tr = load_tri(slot + j * kTriStride);
+    float t, u, v;
+    if (moller_tri(tr, r, cap, t, u, v)) hit = true;
+  }
+  return __ballot_sync(group, hit) != 0u;
+}
+
 // K3, the any-hit walk (and so its paged build K6a, its SlotRange build
 // K6b and the subtree chains K6c), redesigned for Hopper.  Occlusion under
 // a fixed cap does not depend on the order of the walk: the walk tests
@@ -645,14 +697,8 @@ __global__ void any_fat4_kernel(const float* __restrict__ o, const float* __rest
         int k = __ffs(leaves) - 1;
         leaves &= leaves - 1;
         int e = pick(k, enc[0], enc[1], enc[2], enc[3]);
-        const float* slot = tris + static_cast<int64_t>(gate.row(e >> 5)) * G * kTriStride;
-        int count = (e & 31) * G;
-#pragma unroll 4
-        for (int j = 0; j < count; ++j) {
-          Tri tr = load_tri(slot + j * kTriStride);
-          float t, u, v;
-          if (!occ && moller_tri(tr, r, cap, t, u, v)) occ = true;
-        }
+        occ = any_leaf(tris + static_cast<int64_t>(gate.row(e >> 5)) * G * kTriStride, (e & 31) * G,
+                       r, cap);
       }
       if (!occ) {
 #pragma unroll
@@ -705,16 +751,8 @@ __global__ void any_fat4_group_kernel(const float* __restrict__ o, const float* 
         int k = __ffs(leaves) - 1;
         leaves &= leaves - 1;
         int e = pick(k, enc[0], enc[1], enc[2], enc[3]);
-        const float* slot = tris + static_cast<int64_t>(gate.row(e >> 5)) * G * kTriStride;
-        int count = (e & 31) * G;
-        // This lane's triangles j = sub, sub + kGroup, ... of the leaf.
-        bool hit = false;
-        for (int j = sub; j < count; j += kGroup) {
-          Tri tr = load_tri(slot + j * kTriStride);
-          float t, u, v;
-          if (moller_tri(tr, r, cap, t, u, v)) hit = true;
-        }
-        if (__ballot_sync(group, hit) != 0u) {
+        if (any_leaf_group(tris + static_cast<int64_t>(gate.row(e >> 5)) * G * kTriStride,
+                           (e & 31) * G, sub, group, r, cap)) {
           occ = true;
           break;
         }
@@ -834,35 +872,8 @@ __global__ void any_node_kernel(const float* __restrict__ o, const float* __rest
 // at most two pushes.
 constexpr int kFatStride = 16;
 
-struct FatFields {
-  int field[2];
-  int meta[2];
-  int om;
-};
-
-__device__ __forceinline__ FatFields decode_fat(const float* __restrict__ row) {
-  FatFields f;
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    int enc = __float_as_int(__ldg(row + 12 + k));
-    f.field[k] = enc & 31;
-    f.meta[k] = enc >> 5;
-  }
-  f.om = __float_as_int(__ldg(row + 14));
-  return f;
-}
-
-// Push the hit inner children, far first and near on top (K7a/K7b order).
-__device__ __forceinline__ void push_fat_near_first(int* stack, int& sp, const FatFields& f,
-                                                    const bool* ok, const bool* pos) {
-  int nk = near_first(f.om, pos) ? 0 : 1;
-  int fk = 1 - nk;
-  if (ok[fk]) stack[sp++] = f.meta[fk];
-  if (ok[nk]) stack[sp++] = f.meta[nk];
-}
-
-// The same from encodings in registers (K7b): the children in `inner`,
-// far first and near on top by the order meta om and the sign bits pos.
+// The hit inner children in `inner`, far first and near on top (K7a/K7b
+// order), by the order meta om and the sign bits pos.
 __device__ __forceinline__ void push_fat_inner(int* stack, int& sp, const int (&enc)[2],
                                                unsigned inner, int om, unsigned pos) {
   const int far = near_first_bits(om, pos) ? 1 : 0;
@@ -870,6 +881,16 @@ __device__ __forceinline__ void push_fat_inner(int* stack, int& sp, const int (&
   if ((inner >> (1 - far)) & 1u) stack[sp++] = (far ? enc[0] : enc[1]) >> 5;
 }
 
+// K7a, the fat2 closest hit, redesigned for Hopper with K1's levers: the
+// 64-byte row as 4 16-byte loads right after the pop, both boxes and both
+// encodings in registers, leaf and inner children as bit masks (no array
+// indexed at run time), and triangles through closest_leaf (5 8-byte loads
+// each, the leaf loop unrolled by 4).  It visits the same nodes and tests
+// the same triangles in the same order with the same arithmetic as
+// closest_hit_fat_plain, so t, tri, u and v stay equal to it bit for bit.
+// It keeps one thread per ray: every launch is a frame's primary rays (~2M
+// at 1080p, once per subtree chunk on the chained route), far above
+// group_rays(), where the group bodies stop winning.
 __global__ void closest_fat_kernel(const float* __restrict__ o, const float* __restrict__ d,
                                    const float* __restrict__ tmax, int tmax_stride,
                                    const float* __restrict__ nodes,
@@ -884,34 +905,33 @@ __global__ void closest_fat_kernel(const float* __restrict__ o, const float* __r
   float bu = 0.0f, bv = 0.0f;
   if (!is_dead(r.ox, r.dx, r.dy, r.dz) && bt > kEps) {
     int stack[kStackMax];
+    const float4* rows = reinterpret_cast<const float4*>(nodes);
+    unsigned pos = pos_bits(r);
     int sp = 0;
     stack[sp++] = 0;
     while (sp > 0) {
-      const float* row = nodes + static_cast<int64_t>(stack[--sp]) * kFatStride;
-      bool box[2];
+      const float4* row = rows + static_cast<int64_t>(stack[--sp]) * (kFatStride / 4);
+      float4 q0 = __ldg(row), q1 = __ldg(row + 1), q2 = __ldg(row + 2), q3 = __ldg(row + 3);
+      const Box box[2] = {{q0.x, q0.y, q0.z, q0.w, q1.x, q1.y},
+                          {q1.z, q1.w, q2.x, q2.y, q2.z, q2.w}};
+      const int enc[2] = {__float_as_int(q3.x), __float_as_int(q3.y)};
+      unsigned leaves = 0, inner = 0;
 #pragma unroll
-      for (int k = 0; k < 2; ++k) box[k] = slab(row, k, r, bt);
-      FatFields f = decode_fat(row);
       for (int k = 0; k < 2; ++k) {
-        if (!(box[k] && is_leaf(f.field[k]))) continue;
-        for (int s = 0; s < f.field[k]; ++s) {
-          const float* slot = tris + (static_cast<int64_t>(f.meta[k]) + s) * G * kTriStride;
-          for (int g = 0; g < G; ++g) {
-            const float* tv = slot + g * kTriStride;
-            float t, u, v;
-            if (moller(tv, r, bt, t, u, v)) {
-              bt = t;
-              btri = __float_as_int(__ldg(tv + 9));
-              bu = u;
-              bv = v;
-            }
-          }
-        }
+        bool hit = slab_box(box[k], r, bt);
+        int field = enc[k] & 31;
+        if (hit && is_leaf(field)) leaves |= 1u << k;
+        if (hit && field >= kInnerField) inner |= 1u << k;
       }
-      bool ok[2];
-#pragma unroll
-      for (int k = 0; k < 2; ++k) ok[k] = box[k] && f.field[k] >= kInnerField;
-      push_fat_near_first(stack, sp, f, ok, r.pos);
+      // The left leaf child's slots, then the right one's.
+      while (leaves) {
+        int k = __ffs(leaves) - 1;
+        leaves &= leaves - 1;
+        int e = k ? enc[1] : enc[0];
+        closest_leaf(tris + static_cast<int64_t>(e >> 5) * G * kTriStride, (e & 31) * G, r, bt,
+                     btri, bu, bv);
+      }
+      push_fat_inner(stack, sp, enc, inner, __float_as_int(q3.z), pos);
     }
   }
   t_out[i] = btri >= 0 ? bt : __int_as_float(0x7f800000);
@@ -1066,6 +1086,20 @@ __global__ void combo_fat_group_kernel(const float* __restrict__ o, const float*
   }
 }
 
+// K7c, the fat2 any hit, redesigned for Hopper as K3: occlusion under a
+// fixed cap does not depend on the order of the walk, so both bodies give
+// any_hit_fat_plain's occ bit for bit, and both keep JAX's any-hit push
+// order (left pushed first, right on top) so that the work counts stay
+// comparable.  Two bodies behind one launch (nb_any_fat):
+//   - one thread per ray for large launches (2^21 rays, the chains' direct
+//     pass): the row as 4 16-byte loads right after the pop, masks and
+//     encodings in registers, triangles through any_leaf (8-byte loads, the
+//     leaf loop unrolled by 4), out at the first hit;
+//   - kGroup lanes per ray for small ones (a fat2 frame's last-vertex
+//     launch holds ~1,200 rays, 10 blocks of one thread per ray): lane
+//     sub & 1 tests box sub & 1 (3 8-byte loads), one ballot gives the hit
+//     mask, a leaf's triangles are dealt out to the lanes (any_leaf_group),
+//     and one ballot tells the group to leave at the first hit.
 __global__ void any_fat_kernel(const float* __restrict__ o, const float* __restrict__ d,
                                const float* __restrict__ tmax, int tmax_stride,
                                const float* __restrict__ nodes,
@@ -1078,34 +1112,89 @@ __global__ void any_fat_kernel(const float* __restrict__ o, const float* __restr
   bool occ = false;
   if (!is_dead(r.ox, r.dx, r.dy, r.dz) && cap > kEps) {
     int stack[kStackMax];
+    const float4* rows = reinterpret_cast<const float4*>(nodes);
     int sp = 0;
     stack[sp++] = 0;
     while (sp > 0 && !occ) {
-      const float* row = nodes + static_cast<int64_t>(stack[--sp]) * kFatStride;
-      bool box[2];
+      const float4* row = rows + static_cast<int64_t>(stack[--sp]) * (kFatStride / 4);
+      float4 q0 = __ldg(row), q1 = __ldg(row + 1), q2 = __ldg(row + 2), q3 = __ldg(row + 3);
+      const Box box[2] = {{q0.x, q0.y, q0.z, q0.w, q1.x, q1.y},
+                          {q1.z, q1.w, q2.x, q2.y, q2.z, q2.w}};
+      const int enc[2] = {__float_as_int(q3.x), __float_as_int(q3.y)};
+      unsigned leaves = 0, inner = 0;
 #pragma unroll
-      for (int k = 0; k < 2; ++k) box[k] = slab(row, k, r, cap);
-      FatFields f = decode_fat(row);
-      for (int k = 0; k < 2 && !occ; ++k) {
-        if (!(box[k] && is_leaf(f.field[k]))) continue;
-        for (int s = 0; s < f.field[k] && !occ; ++s) {
-          const float* slot = tris + (static_cast<int64_t>(f.meta[k]) + s) * G * kTriStride;
-          for (int g = 0; g < G; ++g) {
-            float t, u, v;
-            if (moller(slot + g * kTriStride, r, cap, t, u, v)) {
-              occ = true;
-              break;
-            }
-          }
-        }
+      for (int k = 0; k < 2; ++k) {
+        bool hit = slab_box(box[k], r, cap);
+        int field = enc[k] & 31;
+        if (hit && is_leaf(field)) leaves |= 1u << k;
+        if (hit && field >= kInnerField) inner |= 1u << k;
       }
-      // JAX's any-hit order: left pushed first, right on top.
-#pragma unroll
-      for (int k = 0; k < 2; ++k)
-        if (box[k] && f.field[k] >= kInnerField) stack[sp++] = f.meta[k];
+      while (leaves && !occ) {
+        int k = __ffs(leaves) - 1;
+        leaves &= leaves - 1;
+        int e = k ? enc[1] : enc[0];
+        occ = any_leaf(tris + static_cast<int64_t>(e >> 5) * G * kTriStride, (e & 31) * G, r, cap);
+      }
+      if (!occ) {
+        if (inner & 1u) stack[sp++] = enc[0] >> 5;
+        if (inner & 2u) stack[sp++] = enc[1] >> 5;
+      }
     }
   }
   occ_out[i] = occ;
+}
+
+// K7c's group body: kGroup lanes walk one ray.
+__global__ void any_fat_group_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                                     const float* __restrict__ tmax, int tmax_stride,
+                                     const float* __restrict__ nodes,
+                                     const float* __restrict__ tris, int G, int n,
+                                     bool* __restrict__ occ_out) {
+  int i = (blockIdx.x * blockDim.x + threadIdx.x) / kGroup;
+  if (i >= n) return;  // the whole group
+  const int sub = threadIdx.x % kGroup;
+  const int base = (threadIdx.x & 31) - sub;
+  const unsigned group = ((1u << kGroup) - 1u) << base;
+  Ray r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1], d[3 * i + 2]);
+  float cap = tmax[i * tmax_stride];
+  bool occ = false;
+  if (!is_dead(r.ox, r.dx, r.dy, r.dz) && cap > kEps) {
+    int stack[kStackMax];
+    int sp = 0;
+    stack[sp++] = 0;
+    while (sp > 0) {
+      const float* row = nodes + static_cast<int64_t>(stack[--sp]) * kFatStride;
+      // This lane's box, 6 floats at 24 * (sub % 2) bytes: 3 8-byte loads.
+      const float2* bp = reinterpret_cast<const float2*>(row + 6 * (sub & 1));
+      float2 b0 = __ldg(bp), b1 = __ldg(bp + 1), b2 = __ldg(bp + 2);
+      float2 e2 = __ldg(reinterpret_cast<const float2*>(row + 12));
+      const Box bx = {b0.x, b0.y, b1.x, b1.y, b2.x, b2.y};
+      unsigned hits = (__ballot_sync(group, slab_box(bx, r, cap)) >> base) & 3u;
+      const int enc[2] = {__float_as_int(e2.x), __float_as_int(e2.y)};
+      unsigned leaves = 0, inner = 0;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        bool hit = (hits >> k) & 1u;
+        int field = enc[k] & 31;
+        if (hit && is_leaf(field)) leaves |= 1u << k;
+        if (hit && field >= kInnerField) inner |= 1u << k;
+      }
+      while (leaves) {
+        int k = __ffs(leaves) - 1;
+        leaves &= leaves - 1;
+        int e = k ? enc[1] : enc[0];
+        if (any_leaf_group(tris + static_cast<int64_t>(e >> 5) * G * kTriStride, (e & 31) * G, sub,
+                           group, r, cap)) {
+          occ = true;
+          break;
+        }
+      }
+      if (occ) break;
+      if (inner & 1u) stack[sp++] = enc[0] >> 5;
+      if (inner & 2u) stack[sp++] = enc[1] >> 5;
+    }
+  }
+  if (sub == 0) occ_out[i] = occ;
 }
 
 inline int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -1118,8 +1207,8 @@ inline int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
 // HBM3 at 700 W, chip_smoke.py --ab, each body on the same launch): 443k
 // rays (1080p) group 0.380 ms against 0.463; 788k (1440p) 0.707 against
 // 0.513; 1.77M (2160p) 1.414 against 0.850.  Every later launch (7.5k-59k
-// rays) is 2-4x faster as a group.  K3 and K7b (launch_any_fat4,
-// nb_combo_fat) take the same cutoff through launch_by_size.
+// rays) is 2-4x faster as a group.  K3, K7b and K7c (launch_any_fat4,
+// nb_combo_fat, nb_any_fat) take the same cutoff through launch_by_size.
 constexpr int64_t kGroupWaves = 16;
 constexpr int kMaxDevices = 64;
 
@@ -1218,8 +1307,9 @@ int nb_combo_fat4(const float* o, const float* b, const float* l, const float* t
                            AllSlots{}, stream);
 }
 
-// The most rays for which K2, K3 (all their builds) and K7b run their group
-// bodies on the current device; one thread per ray above it.
+// The most rays for which K2, K3 (all their builds), K7b and K7c run their
+// group bodies on the current device; one thread per ray above it (K1 and
+// K7a always take one thread per ray).
 int nb_group_rays(int64_t* rays) { return static_cast<int>(group_rays(rays)); }
 
 int nb_any_fat4(const float* o, const float* d, const float* tmax, int tmax_stride,
@@ -1286,11 +1376,17 @@ int nb_combo_fat(const float* o, const float* b, const float* l, const float* tm
 
 int nb_any_fat(const float* o, const float* d, const float* tmax, int tmax_stride,
                const float* nodes, const float* tris, int G, int n, bool* occ, void* stream) {
-  if (n > 0) {
-    any_fat_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, d, tmax, tmax_stride, nodes, tris, G, n, occ);
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return launch_by_size(
+      n,
+      [&] {
+        any_fat_group_kernel<<<grid_for(n * kGroup), kThreads, 0, st>>>(o, d, tmax, tmax_stride,
+                                                                          nodes, tris, G, n, occ);
+      },
+      [&] {
+        any_fat_kernel<<<grid_for(n), kThreads, 0, st>>>(o, d, tmax, tmax_stride, nodes, tris, G,
+                                                         n, occ);
+      });
 }
 
 // K8 over one-node rows.

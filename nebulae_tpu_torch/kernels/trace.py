@@ -814,9 +814,9 @@ def _check_tables(tables, dev, nodes_key="fat4nodes"):
 
 
 def _check_wide_loads(tables, nodes_key="fat4nodes"):
-    """K1-K3 (and their paged and slot-gated builds) and K7b read a node row
-    as 16-byte loads and a triangle as 8-byte loads: a table whose start is
-    not so aligned (a view at an odd offset) is refused rather than read
+    """K1-K3 (and their paged and slot-gated builds) and K7a-K7c read a node
+    row as 16-byte loads and a triangle as 8-byte loads: a table whose start
+    is not so aligned (a view at an odd offset) is refused rather than read
     misaligned."""
     if tables[nodes_key].data_ptr() % 16 or tables["tris"].data_ptr() % 8:
         raise ValueError(f"{nodes_key} must be 16-byte and tris 8-byte aligned for the walks' wide loads")
@@ -954,9 +954,9 @@ def _record(counter, *inputs):
 
 
 def group_rays() -> int:
-    """The most rays for which K2, K3 (and their K6a / K6b builds) and K7b
-    run their group bodies, several lanes per ray, on the current CUDA
-    device; above it, one thread per ray."""
+    """The most rays for which K2, K3 (and their K6a / K6b builds), K7b and
+    K7c run their group bodies, several lanes per ray, on the current CUDA
+    device; above it, one thread per ray (K1 and K7a always take one)."""
     rays = ctypes.c_int64(0)
     check(native().lib.nb_group_rays(ctypes.byref(rays)), "nb_group_rays")
     return int(rays.value)
@@ -1050,14 +1050,14 @@ def closest_hit_fat(o, d, tables: dict, t_max=float("inf")):
     """K7a: closest hit over fat2 tables -> dict(t, tri, u, v)."""
     return _closest("nb_closest_fat", closest_hit_fat,
                     lambda: closest_hit_fat_plain(o, d, tables, t_max), o, d, tables, t_max,
-                    nodes_key="fatnodes")
+                    nodes_key="fatnodes", family_check=_check_wide_loads)
 
 
 def any_hit_fat(o, d, tables: dict, t_max=float("inf")):
     """K7c: occlusion within t_max over fat2 tables -> occluded [N] bool."""
     return _any("nb_any_fat", any_hit_fat,
                 lambda: any_hit_fat_plain(o, d, tables, t_max), o, d, tables, t_max,
-                nodes_key="fatnodes")
+                nodes_key="fatnodes", family_check=_check_wide_loads)
 
 
 def shadow_closest_fat(o, b, l, tables: dict, t_max_b=float("inf"), t_max_l=float("inf")):

@@ -4,9 +4,10 @@ g++ builds trace.cu against tests/cuda_on_cpu.h, which runs each GPU
 thread of a block as a std::thread and meets warp collectives at a barrier
 per (warp, mask); each launch becomes a loop over its blocks.  Both bodies
 of K2 (shadow_closest_fat4), K3 (any_hit_fat4, and its slot-gated K6b
-build) and K7b (shadow_closest_fat) are held to the plain walks at 1, 31,
-33 and 4,097 rays: a partial warp, a warp and a lane, and a partial block
-of either body.  tri, t, u, v and occ must be equal: the kernels build with
+build), K7b (shadow_closest_fat) and K7c (any_hit_fat), and the one body
+of K1 (closest_hit_fat4) and K7a (closest_hit_fat), are held to the plain
+walks at 1, 31, 33 and 4,097 rays: a partial warp, a warp and a lane, and
+a partial block of either body.  tri, t, u, v and occ must be equal: the kernels build with
 --fmad=false, and g++ with -ffp-contract=off rounds as they do.  The rays
 leave surface points of a ~5k-triangle scene in directions drawn from a
 seed, with zero and short caps, dead origins and zero directions.  This is
@@ -126,9 +127,19 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _any(lib, entry, o, d, tab, cap, *gate):
+def _closest(lib, entry, key, o, d, tab, cap):
+    n = o.shape[0]
+    t, u, v = torch.empty(n), torch.empty(n), torch.empty(n)
+    tri = torch.empty(n, dtype=torch.int32)
+    rc = getattr(lib, entry)(_ptr(o), _ptr(d), _ptr(cap), 1, _ptr(tab[key]), _ptr(tab["tris"]),
+                             tab["tris"].shape[1], n, _ptr(t), _ptr(tri), _ptr(u), _ptr(v), None)
+    assert rc == 0
+    return {"t": t, "tri": tri, "u": u, "v": v}
+
+
+def _any(lib, entry, key, o, d, tab, cap, *gate):
     occ = torch.zeros(o.shape[0], dtype=torch.bool)
-    rc = getattr(lib, entry)(_ptr(o), _ptr(d), _ptr(cap), 1, _ptr(tab["fat4nodes"]), _ptr(tab["tris"]),
+    rc = getattr(lib, entry)(_ptr(o), _ptr(d), _ptr(cap), 1, _ptr(tab[key]), _ptr(tab["tris"]),
                              tab["tris"].shape[1], o.shape[0], *gate, _ptr(occ), None)
     assert rc == 0
     return occ
@@ -146,27 +157,43 @@ def _combo(lib, entry, key, o, b, l_, tab, cap_b, cap_l):
     return {"t": t, "tri": tri, "u": u, "v": v}, occ
 
 
-def _same(got, want):
-    (hit, occ), (hit_p, occ_p) = got, want
+def _same_hit(hit, hit_p):
     for k in ("t", "tri", "u", "v"):
         assert torch.equal(hit[k], hit_p[k]), k
+
+
+def _same(got, want):
+    (hit, occ), (hit_p, occ_p) = got, want
+    _same_hit(hit, hit_p)
     assert torch.equal(occ, occ_p), "occ"
 
 
+# Each walk with each of its bodies: K1 and K7a have one thread per ray only.
+CASES = [(k, b) for k in ("K2", "K3", "K3 slots", "K7b", "K7c") for b in ("group", "thread")]
+CASES += [("K1", "thread"), ("K7a", "thread")]
+
+
 @pytest.mark.parametrize("n", SIZES)
-@pytest.mark.parametrize("body", ("group", "thread"))
-@pytest.mark.parametrize("kernel", ("K2", "K3", "K3 slots", "K7b"))
+@pytest.mark.parametrize("kernel, body", CASES)
 def test_emulated_walk_equals_plain(lib, scene, kernel, body, n):
     fat4, fat2, chunk, points = scene
     o, b, l_, cap_b, cap_l = _rays(points, n)
     lib.emu_use_group_body(body == "group")
-    if kernel == "K3":
-        occ = kt.any_hit_fat4_plain(o, l_, fat4, cap_l)
-        assert torch.equal(_any(lib, "nb_any_fat4", o, l_, fat4, cap_l), occ)
+    occ = hit = None
+    if kernel in ("K3", "K7c"):
+        tab, key, entry, plain = ((fat4, "fat4nodes", "nb_any_fat4", kt.any_hit_fat4_plain) if kernel == "K3"
+                                  else (fat2, "fatnodes", "nb_any_fat", kt.any_hit_fat_plain))
+        occ = plain(o, l_, tab, cap_l)
+        assert torch.equal(_any(lib, entry, key, o, l_, tab, cap_l), occ)
     elif kernel == "K3 slots":
         sr = (chunk["slot_lo"], chunk["slot_hi"])
         occ = kt.any_hit_fat4_plain(o, l_, chunk, cap_l, slot_range=sr)
-        assert torch.equal(_any(lib, "nb_any_fat4_slots", o, l_, chunk, cap_l, *sr), occ)
+        assert torch.equal(_any(lib, "nb_any_fat4_slots", "fat4nodes", o, l_, chunk, cap_l, *sr), occ)
+    elif kernel in ("K1", "K7a"):
+        tab, key, entry, plain = ((fat4, "fat4nodes", "nb_closest_fat4", kt.closest_hit_fat4_plain)
+                                  if kernel == "K1" else (fat2, "fatnodes", "nb_closest_fat", kt.closest_hit_fat_plain))
+        hit = plain(o, b, tab, cap_b)
+        _same_hit(_closest(lib, entry, key, o, b, tab, cap_b), hit)
     elif kernel == "K2":
         hit, occ = kt.shadow_closest_fat4_plain(o, b, l_, fat4, cap_b, cap_l)
         _same(_combo(lib, "nb_combo_fat4", "fat4nodes", o, b, l_, fat4, cap_b, cap_l), (hit, occ))
@@ -175,6 +202,7 @@ def test_emulated_walk_equals_plain(lib, scene, kernel, body, n):
         _same(_combo(lib, "nb_combo_fat", "fatnodes", o, b, l_, fat2, cap_b, cap_l), (hit, occ))
     if n == SIZES[-1]:
         # Both outcomes occur, so both are held.
-        assert 0 < int(occ.sum()) < n
-        if kernel in ("K2", "K7b"):
+        if occ is not None:
+            assert 0 < int(occ.sum()) < n
+        if hit is not None:
             assert 0 < int((hit["tri"] >= 0).sum()) < n

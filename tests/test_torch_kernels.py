@@ -10,8 +10,8 @@ ragged edges, on the CPU.
     slot-gated walks over such views equal JAX's interpreted kernel.
   * The closest-hit walk (K1, K6a, K6b) and the any-hit walk (K3, K6a,
     K6b) read rows and triangles as K2 does, and their wrappers refuse the
-    same tables before they dispatch; so does the fat2 fused walk (K7b),
-    with the node faults on its fatnodes table.
+    same tables before they dispatch; so do the three fat2 walks (K7a, K7b
+    and K7c), with the node faults on their fatnodes table.
   * K4 and K5 refuse a step below 1.
   * K5's plain version on a ragged 13x11 image, where the taps of steps 4
     and 8 reach past every edge, against jax.vjp of the interpreted Pallas
@@ -29,6 +29,7 @@ FUSED = ("shadow_closest_fat4", "shadow_closest_fat4_paged", "shadow_closest_fat
 CLOSEST = ("closest_hit_fat4", "closest_hit_fat4_paged", "closest_hit_fat4_slots")
 ANY = ("any_hit_fat4", "any_hit_fat4_paged", "any_hit_fat4_slots")
 FAT2_FUSED = "shadow_closest_fat"
+FAT2 = ("closest_hit_fat", FAT2_FUSED, "any_hit_fat")
 
 
 def _soup(n_tris=400, seed=3):
@@ -63,9 +64,9 @@ def _call(name, o, b, l, tables):
     if name.endswith("_slots"):
         n = tables["tris"].shape[0]
         tables = {**tables, "slot_lo": 0, "slot_hi": n}
-    if name in CLOSEST or name in ANY:
-        return getattr(kt, name)(o, b, tables)
-    return getattr(kt, name)(o, b, l, tables)
+    if name in FUSED or name == FAT2_FUSED:
+        return getattr(kt, name)(o, b, l, tables)
+    return getattr(kt, name)(o, b, tables)
 
 
 def _misaligned(t):
@@ -97,8 +98,8 @@ BAD_TABLES = {
 def _refuses_bad_tables_before_dispatch(name, fault):
     from nebulae_tpu_torch.kernels import trace as kt
 
-    nodes = "fatnodes" if name == FAT2_FUSED else "fat4nodes"
-    tables = _tables(wide=2 if name == FAT2_FUSED else 4)
+    nodes = "fatnodes" if name in FAT2 else "fat4nodes"
+    tables = _tables(wide=2 if name in FAT2 else 4)
     o, b, l = _rays(64)
     _call(name, o, b, l, tables)  # the tables as packed are taken
     bad = BAD_TABLES[fault](tables, nodes)
@@ -129,9 +130,13 @@ def test_any_walk_refuses_bad_tables_before_dispatch(name, fault):
     _refuses_bad_tables_before_dispatch(name, fault)
 
 
-@pytest.mark.parametrize("fault", list(BAD_TABLES))
-def test_fat2_fused_walk_refuses_bad_tables_before_dispatch(fault):
-    _refuses_bad_tables_before_dispatch(FAT2_FUSED, fault)
+@pytest.mark.parametrize("name, fault", [
+    # The fused walk's cases keep the ids they had before K7a and K7c joined.
+    pytest.param(name, fault, id=fault if name == FAT2_FUSED else f"{name}-{fault}")
+    for name in FAT2 for fault in BAD_TABLES])
+def test_fat2_fused_walk_refuses_bad_tables_before_dispatch(name, fault):
+    """The fat2 walks: closest (K7a), fused (K7b) and any hit (K7c)."""
+    _refuses_bad_tables_before_dispatch(name, fault)
 
 
 @pytest.mark.parametrize("tri_group, n_tris", [(1, 800), (3, 1500), (8, 1500)])
