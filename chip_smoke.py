@@ -42,7 +42,12 @@ Phases (any failure raises and exits non-zero):
               subtree chunks): 1 + 3 frames held against the paged frames,
               one profiled (K7a, K7b, K7c and K8 apart).  A 12-triangle box
               with tracer="pallas" (the BVH root is a leaf): a 1080p frame
-              through K8, held against the brute-force frame, one profiled
+              through K8, held against the brute-force frame, one profiled.
+              K8 (one-node closest and any, both bodies of each) against
+              its plain versions with max error 0: on each of its launches
+              in a box frame and in a 2M bvh_wide=2 frame (the single-leaf
+              chunks), over the whole 247k tree at 1080p and 2^21 rays, and
+              at the stress sizes over that tree and over the box's leaf
   8. fat2     bvh_wide=2 and dynamic scenes.  The bench scene's fat2 table:
               K7 (fat2 closest, fused and any) against its plain versions
               and against K1-K3 at the phase-4 shapes and at the stress
@@ -58,7 +63,14 @@ Phases (any failure raises and exits non-zero):
               and on the 247k subtree route (switched to paged): its time
               and one profiled call, 1 + 3 frames held against a rebuild
               on the moved triangles, and a profile of each
-  9. summary  one {"kernels": [...]} line, then the device line last
+  9. options  the bench scene at 1920x1080 with jitter_primary, then
+              fast_bounce_shading, then enable_envmap (JAX's app's
+              procedural 64x128 sky), then all three: 1 warm-up and 3 timed
+              frames with the launch counts read around them (jitter shows
+              K1 twice a frame), one profiled frame, 1 warm-up and 3 timed
+              train steps, one profiled; and each option's 64x64 frame and
+              step on the GPU against the CPU plain path
+ 10. summary  one {"kernels": [...]} line, then the device line last
 Each phase logs its seconds; each profile lists every launch of a port
 kernel with its grid, block, registers and time.  Imports nothing of JAX or
 of the JAX package.
@@ -76,13 +88,17 @@ builds its kernels, makes phase 4's inputs as phase 4 does on the saved
 BVH (so every tree walks the same tree), and times K1 and K7a on the
 1080p primary rays (a frame's own launch), K2, K3, K7b and K7c at phase
 4's shape (2^21 rays) and on each saved launch, K3, K7b and K7c on
-strided subsets of those rays (AB_SWEEP), and K4 and K5 at steps 1, 2, 4
-and 8.  Where the tree's kernel has a group body, each of its launches is
+strided subsets of those rays (AB_SWEEP), K8 (closest and any) on each of
+its launches in a 1080p box frame and in a 1080p frame of the ~2M scene
+with bvh_wide=2 (saved with their one-node tables), and K4 and K5 at steps
+1, 2, 4 and 8.  Where the tree's kernel has a group body, each of its launches is
 also timed with the other body: split into launches the group body takes,
 or padded with dead rays past them; the results must equal the launch's
 own.  Prints the card's name and power limit, one JSON line per process,
-each tree's medians (K4 and K5 per step) and output digests (K1, K7a, K2,
-K3, K7b, K7c, K4, K5 and every saved launch), and which kernels' SASS
+each tree's medians (K4 and K5 per step; K8's device ms summed over each
+frame's launches, and with one thread per ray on every launch where the
+tree has a group body) and output digests (K1, K7a, K2, K3, K7b, K7c, K4,
+K5 and every saved launch), and which kernels' SASS
 (`cuobjdump -sass`) equals the first tree's.
 """
 
@@ -418,25 +434,27 @@ def hold_combo(held, what, kernel, plain, o, b, l, tables, cap_b=float("inf"), c
     return hk, occ_k
 
 
-def _same(k, p, what):
+def _same(k, p, what, exact=False):
     """A kernel's result equal to its plain version's: occ equal; tri equal
-    and t/u/v within rtol 1e-6 (a fused walk gives both)."""
+    and t/u/v within rtol 1e-6, or equal where `exact` (a fused walk gives
+    both)."""
     import torch
 
     if isinstance(k, tuple):
         for a, b in zip(k, p, strict=True):
-            _same(a, b, what)
+            _same(a, b, what, exact)
     elif isinstance(k, dict):
-        _hit_err(k, p, what)
+        assert _hit_err(k, p, what) == 0.0 or not exact, f"{what}: t, u or v differs from its plain version"
     else:
         assert torch.equal(k, p), f"{what}: occ differs from its plain version"
 
 
-def stress(tag, kernel, plain, rays, n_caps, two_bodies=True) -> None:
+def stress(tag, kernel, plain, rays, n_caps, two_bodies=True, exact=False, cutoff=None) -> None:
     """kernel(*rays, *caps) against plain(*rays, *caps, {}) at 1, 31, 33 and
     4,097 rays (a partial warp, a warp and a lane, a partial block) and,
     where the kernel has a group body, at one ray more than that body takes
-    (a partial block of the thread-per-ray body).  The rays are spread over
+    (`cutoff`, by default group_rays(): a partial block of the
+    thread-per-ray body).  The rays are spread over
     the given batch (origin first, then one direction per walk).  Each of
     the n_caps per-ray caps is 0 on some rays (as sorted_shadow_closest
     gives lanes that do not bounce or shoot) and short on others; some
@@ -446,7 +464,7 @@ def stress(tag, kernel, plain, rays, n_caps, two_bodies=True) -> None:
     from nebulae_tpu_torch.kernels.trace import group_rays
     from nebulae_tpu_torch.tracer.sorting import DEAD_ORIGIN
 
-    sizes = (1, 31, 33, 4097) + ((group_rays() + 1,) if two_bodies else ())
+    sizes = (1, 31, 33, 4097) + (((cutoff or group_rays()) + 1,) if two_bodies else ())
     for n in sizes:
         pick = torch.linspace(0, rays[0].shape[0] - 1, n, device=rays[0].device).long()
         rs = [r[pick].clone() for r in rays]
@@ -455,8 +473,9 @@ def stress(tag, kernel, plain, rays, n_caps, two_bodies=True) -> None:
                 for k in range(n_caps)]
         rs[0][i % 7 == 3] = DEAD_ORIGIN
         rs[1][i % 11 == 5] = 0.0
-        _same(kernel(*rs, *caps), plain(*rs, *caps, {}), f"{tag} at {n} rays")
-    log(f"{tag} stress: {sizes} rays with zero and short caps and dead lanes equal their plain version")
+        _same(kernel(*rs, *caps), plain(*rs, *caps, {}), f"{tag} at {n} rays", exact)
+    log(f"{tag} stress: {sizes} rays with zero and short caps and dead lanes equal their plain version"
+        + (" (max error 0)" if exact else ""))
 
 
 def recorded_launches(render, *wrappers) -> list:
@@ -472,6 +491,69 @@ def recorded_launches(render, *wrappers) -> list:
         for w in wrappers:
             w.record = None
     return recs
+
+
+def node_launches(render) -> list:
+    """Each K8 launch of one render() as (walk, o, d, tables, cap), walk
+    "closest" or "any", through spies on the two K8 wrappers (the one-node
+    route and the subtree chains look them up when they trace); launches of
+    no rays, which launch nothing, are left out."""
+    import torch
+
+    from nebulae_tpu_torch.kernels import trace as kt
+
+    recs = []
+    closest, any_hit = kt.closest_hit_node, kt.any_hit_node
+
+    def spy(walk, fn):
+        def call(o, d, tables, t_max=float("inf")):
+            out = fn(o, d, tables, t_max)
+            if o.shape[0] and tables["nodes"].shape[0]:
+                cap = t_max.clone() if torch.is_tensor(t_max) else t_max
+                recs.append((walk, o.clone(), d.clone(), tables, cap))
+            return out
+        # The wrapper counts on, and records to, whatever its module name
+        # holds while the spy stands in.
+        call.launches, call.record = 0, None
+        return call
+
+    kt.closest_hit_node, kt.any_hit_node = spy("closest", closest), spy("any", any_hit)
+    try:
+        render()
+    finally:
+        kt.closest_hit_node, kt.any_hit_node = closest, any_hit
+    return recs
+
+
+def hold_node_launches(what, recs) -> tuple:
+    """Each recorded K8 launch held against its plain version with max
+    error 0 (t, tri, u, v and occ equal), timed on its own rays.  Returns
+    the closest and any walks' Held, summed over the launches, and logs
+    each launch."""
+    from nebulae_tpu_torch.kernels import trace as kt
+
+    held = {"closest": Held(), "any": Held()}
+    for i, (walk, o, d, tab, cap) in enumerate(recs):
+        h = Held()
+        if walk == "closest":
+            hit = hold_closest(h, f"{what} K8 closest launch {i}", lambda a, b, t: kt.closest_hit_node(a, b, tab, t),
+                               lambda a, b, t, w: kt.closest_hit_node_plain(a, b, tab, t, work=w), o, d, tab, cap)
+            live = int((hit["tri"] >= 0).sum())
+        else:
+            occ = hold_any(h, f"{what} K8 any launch {i}", lambda a, b, t: kt.any_hit_node(a, b, tab, t),
+                           lambda a, b, t, w: kt.any_hit_node_plain(a, b, tab, t, work=w), o, d, tab, cap)
+            live = int(occ.sum())
+        assert h.err == 0.0, f"{what} K8 {walk} launch {i}: max error {h.err:.3g}"
+        held[walk].add(h.err, h.ms, h.plain_ms, (h.bound, h.by))
+        _merge_work(held[walk].work, h.work)
+        leaf = tab["nodes"].shape[0] == 1
+        log(f"{what} K8 {walk} launch {i}: {o.shape[0]} rays ({'one leaf of' if leaf else 'a tree over'} "
+            f"{tab['tris'].shape[0]} slots x {tab['tris'].shape[1]}), {live} hit, kernel {h.ms:.4f} ms, plain "
+            f"{h.plain_ms:.1f} ms, bound {h.bound:.5f} ms ({h.by}), work {h.work}; max error 0")
+    for walk, h in held.items():
+        log(f"{what} K8 {walk} over its {sum(r[0] == walk for r in recs)} launches: kernel {h.ms:.4f} ms, "
+            f"plain {h.plain_ms:.1f} ms, bound {h.bound:.5f} ms ({h.by}), work {h.work}")
+    return held["closest"], held["any"]
 
 
 def _merge_work(into, work):
@@ -512,13 +594,13 @@ def _grad_report(opt) -> dict:
 # "combo_fat_" take both bodies of K2, K3 and K7b.
 FAT4_KERNELS = ("closest_fat4_kernel", "combo_fat4", "any_fat4", "atrous_fwd_kernel")
 FAT2_KERNELS = ("closest_fat_kernel", "combo_fat_", "any_fat_", "atrous_fwd_kernel")
-NODE_KERNELS = ("closest_node_kernel", "any_node_kernel")
+NODE_KERNELS = ("closest_node", "any_node")  # both bodies of each K8 walk
 
 
-def train_phase(renderer, cam, cfg, wrappers, kernel_names=FAT4_KERNELS) -> dict:
+def train_phase(renderer, cam, cfg, wrappers, kernel_names=FAT4_KERNELS, what="train") -> dict:
     """bench.py:107-123 on the port: params held fixed across the timed
     steps, the frame state threaded from step to step.  Returns the launch
-    counts of the 4 steps (1 warm-up, 3 timed)."""
+    counts of the 4 steps (1 warm-up, 3 timed); logs under `what`."""
     import torch
 
     from nebulae_tpu_torch.engine.renderer import init_frame_state
@@ -559,19 +641,44 @@ def train_phase(renderer, cam, cfg, wrappers, kernel_names=FAT4_KERNELS) -> dict
     assert not missing, f"kernels not launched on the train path: {missing}"
     step_s = sum(times) / len(times)
     rays = WIDTH * HEIGHT * (1 + SPP * (2 * BOUNCES - 1))
-    log(f"train: {step_s * 1e3:.2f} ms/step (mean of 3; steps {[round(t * 1e3, 2) for t in times]}), "
+    log(f"{what}: {step_s * 1e3:.2f} ms/step (mean of 3; steps {[round(t * 1e3, 2) for t in times]}), "
         f"{rays / step_s / 1e6:.2f} Mrays/s fwd+bwd, loss {float(loss):.6f}, "
         f"peak device memory {peak:.2f} GiB, launches per step {per_step}")
-    log("train: gradient norms " + json.dumps(
+    log(f"{what}: gradient norms " + json.dumps(
         {k: float(torch.linalg.vector_norm(g)) for k, g in grads.items()}))
     profile_frame(lambda: step(params, opt_state, cam, state, target), kernel_names + ("atrous_bwd_kernel",),
-                  step_s * 1e3, phases=TRAIN_PHASES, what="train step")
+                  step_s * 1e3, phases=TRAIN_PHASES, what=f"{what} step")
     return launches
 
 
-def small_train_check(fs) -> None:
+def small_frame_check(fs, options=None, env_map=None, what="small frame") -> None:
+    """A 64x64 frame on the GPU (kernels) against the CPU (plain versions):
+    hdr, denoised and ldr on >= 99% of pixels within rtol 1e-3 / atol 1e-4."""
+    import torch
+
+    from nebulae_tpu_torch.config import RenderConfig
+    from nebulae_tpu_torch.engine.renderer import Renderer
+    from nebulae_tpu_torch.utils.testscenes import bench_camera
+
+    cfg = RenderConfig(width=64, height=64, max_bounces=BOUNCES, enable_svgf=True, enable_tonemap=True,
+                       **(options or {}))
+    cam = bench_camera(fs)
+    out_g = Renderer(fs, cfg, env_map=env_map).render(cam)
+    out_c = Renderer(fs, cfg, device="cpu", env_map=env_map).render(cam)
+    for k in ("hdr", "denoised", "ldr"):
+        a, b = out_g[k].cpu(), out_c[k]
+        assert bool(torch.isfinite(a).all()), f"{what} {k} not finite"
+        close = torch.isclose(a, b, rtol=1e-3, atol=1e-4).all(dim=-1).float().mean()
+        assert float(close) >= 0.99, f"{what} {k}: only {float(close):.4f} of pixels agree"
+    log(f"{what}: GPU agrees with the CPU plain path (ldr mean |d| "
+        f"{float((out_g['ldr'].cpu() - out_c['ldr']).abs().mean()):.3g})")
+
+
+def small_train_check(fs, options=None, env_map=None, what="small train step") -> None:
     """A 64x64 train step on the GPU (kernels) against the CPU (plain
-    versions): loss to a relative 1e-3, each gradient to a cosine >= 0.999."""
+    versions): loss to a relative 1e-3, each gradient to a cosine >= 0.999
+    (a gradient that is zero on the CPU must be zero on the GPU: the sky
+    colour under enable_envmap)."""
     import torch
 
     from nebulae_tpu_torch.config import RenderConfig
@@ -580,10 +687,11 @@ def small_train_check(fs) -> None:
     from nebulae_tpu_torch.passes.gbuffer import make_camera_arrays
     from nebulae_tpu_torch.utils.testscenes import bench_camera
 
-    cfg = RenderConfig(width=64, height=64, max_bounces=BOUNCES, enable_svgf=True, enable_tonemap=True)
+    cfg = RenderConfig(width=64, height=64, max_bounces=BOUNCES, enable_svgf=True, enable_tonemap=True,
+                       **(options or {}))
     res = {}
     for device in ("cuda", "cpu"):
-        r = Renderer(fs, cfg, device=device)
+        r = Renderer(fs, cfg, device=device, env_map=env_map)
         params, frozen = split_scene_params(r.scene)
         params["sun"] = r.sun
         opt = _recording_adam()
@@ -593,14 +701,18 @@ def small_train_check(fs) -> None:
         _p, _o, _s, loss, _img = step(params, opt.init(params), cam, init_frame_state(cfg, device), target)
         res[device] = (float(loss), {k: g.double().cpu() for k, g in _grad_report(opt).items()})
     (lg, gg), (lc, gc) = res["cuda"], res["cpu"]
-    assert abs(lg - lc) <= 1e-3 * abs(lc), f"small train step loss {lg} vs CPU {lc}"
+    assert abs(lg - lc) <= 1e-3 * abs(lc), f"{what} loss {lg} vs CPU {lc}"
     cos = {}
     for k in gc:
         a, b = gg[k].reshape(-1), gc[k].reshape(-1)
+        if not bool(b.any()):
+            assert not bool(a.any()), f"{what} gradient {k}: zero on the CPU, not on the GPU"
+            cos[k] = "zero on both"
+            continue
         cos[k] = float(a @ b / (torch.linalg.vector_norm(a) * torch.linalg.vector_norm(b)))
-        assert cos[k] >= 0.999, f"small train step gradient {k}: cosine {cos[k]}"
-    log(f"small train step: GPU loss {lg:.6f} vs CPU {lc:.6f}; gradient cosines "
-        + json.dumps({k: round(v, 6) for k, v in cos.items()}))
+        assert cos[k] >= 0.999, f"{what} gradient {k}: cosine {cos[k]}"
+    log(f"{what}: GPU loss {lg:.6f} vs CPU {lc:.6f}; gradient cosines "
+        + json.dumps({k: v if isinstance(v, str) else round(v, 6) for k, v in cos.items()}))
 
 
 # The triangle-chunk budget for the 247k scene's "tri" renderer.  JAX's
@@ -836,7 +948,9 @@ def large_phase(base_cfg) -> tuple[dict, dict]:
             log(f"{tag} {kind} over {len(chunks)} chunks: kernels {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, "
                 f"bound {h.bound:.4f} ms ({h.by}), max err {h.err:.3g}, work {h.work}")
 
-    # K8 over the same BVH in the one-node layout.
+    # K8's general walk over the same BVH in the one-node layout: the whole
+    # tree, a walk no route runs (K8's routes walk one node), held with max
+    # error 0 at 1080p, 2^21 rays and the stress sizes (both bodies).
     nodes = kt.tables_to(kt.pack_bvh_nodes(bvh, fs.tri_pos, cfg.bvh_tri_group), dev)
     h8c, h8a = Held(), Held()
     hit = hold_closest(h8c, "K8 closest", lambda a, b, t: kt.closest_hit_node(a, b, nodes, t),
@@ -845,10 +959,16 @@ def large_phase(base_cfg) -> tuple[dict, dict]:
     oc = hold_any(h8a, "K8 any", lambda a, b, t: kt.any_hit_node(a, b, nodes, t),
                   lambda a, b, t, w: kt.any_hit_node_plain(a, b, nodes, t, work=w), ro, rl, nodes)
     assert torch.equal(oc, occ_any), "K8 any differs from K3"
+    assert h8c.err == 0.0, f"K8 closest over the 247k tree: max error {h8c.err:.3g}"
     for name, h in (("closest_node", h8c), ("any_node", h8a)):
-        report[name] = h.entry()
-        log(f"K8 {name}: {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms ({h.by}), "
-            f"work {h.work}, stack depth {nodes['stack_depth']}")
+        log(f"K8 {name} over the whole 247k tree: {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, bound "
+            f"{h.bound:.4f} ms ({h.by}), work {h.work}, stack depth {nodes['stack_depth']}")
+    stress("K8 closest 247k tree", lambda a, b, t: kt.closest_hit_node(a, b, nodes, t),
+           lambda a, b, t, w: kt.closest_hit_node_plain(a, b, nodes, t, work=w), (ro, rb), 1, exact=True,
+           cutoff=kt.node_group_rays())
+    stress("K8 any 247k tree", lambda a, b, t: kt.any_hit_node(a, b, nodes, t),
+           lambda a, b, t, w: kt.any_hit_node_plain(a, b, nodes, t, work=w), (ro, rl), 1, two_bodies=False,
+           exact=True)
     # One trace of each kind through each route's tracer (chains included).
     for mode, r in renderers.items():
         closest, any_hit = make_tracer(r.scene, r.tables, r.cfg, device=dev)
@@ -961,7 +1081,11 @@ def large_phase(base_cfg) -> tuple[dict, dict]:
     hold_frame("fat2 huge frame", out2, out4, "the 2M paged fat4 frame")
     # K7a, K7b, K7c and K8 (the one-node chunks) each apart.
     profile_frame(lambda: r2f.render(cam_obj2), FAT2_KERNELS + NODE_KERNELS, ms2f, what="fat2 huge frame")
-    del out2, out4, r2f, fs2, bvh2
+    # K8 on each of its launches in one frame: the single-leaf chunks.
+    recs = node_launches(lambda: r2f.render(cam_obj2))
+    assert {r[0] for r in recs} == {"closest", "any"}, "the one-node chunks launched no K8"
+    hold_node_launches("fat2 huge frame", recs)
+    del out2, out4, r2f, fs2, bvh2, recs
     torch.cuda.empty_cache()
     clock.done("huge fat2 frames")
 
@@ -986,6 +1110,19 @@ def large_phase(base_cfg) -> tuple[dict, dict]:
         f"brute force {int((out['hit'] != brute['hit']).sum())} hit decisions differ, {float(close):.6f} "
         f"of pixels agree; launches {json.dumps({k: v for k, v in n.items() if v})}")
     profile_frame(lambda: rb8.render(cam_box), NODE_KERNELS + ("atrous_fwd_kernel",), mean_ms, what="box frame")
+    # K8 on each of the box frame's launches (the kernels line's entries),
+    # and on the box's one leaf at the stress sizes.
+    recs = node_launches(lambda: rb8.render(cam_box))
+    report["closest_node"], report["any_node"] = (h.entry() for h in hold_node_launches("box frame", recs))
+    leaf = rb8.tables
+    o8, d8 = next((r[1], r[2]) for r in recs if r[0] == "closest")
+    stress("K8 closest box", lambda a, b, t: kt.closest_hit_node(a, b, leaf, t),
+           lambda a, b, t, w: kt.closest_hit_node_plain(a, b, leaf, t, work=w), (o8, d8), 1, exact=True,
+           cutoff=kt.node_group_rays())
+    stress("K8 any box", lambda a, b, t: kt.any_hit_node(a, b, leaf, t),
+           lambda a, b, t, w: kt.any_hit_node_plain(a, b, leaf, t, work=w), (o8, d8), 1, two_bodies=False,
+           exact=True)
+    del recs, o8, d8
     cam_box_arrays = make_camera_arrays(cam_box, WIDTH, HEIGHT, dev)
     log(f"box train step: launches {json.dumps(step_launches(rb8, cam_box_arrays, wrappers))}")
     clock.done("box frame")
@@ -1264,6 +1401,66 @@ def fat2_phase(base_cfg, fs, bvh) -> tuple[dict, dict]:
     return report, launches
 
 
+# The frame options of phase 9, one at a time and all three together.
+OPTION_CASES = {
+    "jitter_primary": dict(jitter_primary=True),
+    "fast_bounce_shading": dict(fast_bounce_shading=True),
+    "enable_envmap": dict(enable_envmap=True),
+    "all three": dict(jitter_primary=True, fast_bounce_shading=True, enable_envmap=True),
+}
+
+
+def options_phase(base_cfg, fs, bvh) -> dict:
+    """Phase 9: the bench scene and config at 1920x1080 with each frame
+    option and with all three: 1 warm-up and 3 timed frames with the
+    launch counts read around them (K1 twice a frame under jitter at spp
+    1), one profiled frame, then 1 warm-up and 3 timed train steps, one
+    profiled; and a 64x64 frame and step of each on the GPU against the CPU
+    plain path.  The sky of enable_envmap is JAX's app's procedural 64x128
+    map.  Returns the launch counts of each option's frames."""
+    import dataclasses
+
+    import torch
+
+    from nebulae_tpu_torch.engine.renderer import Renderer, init_frame_state
+    from nebulae_tpu_torch.kernels import svgf as ksvgf
+    from nebulae_tpu_torch.kernels import trace as kt
+    from nebulae_tpu_torch.passes.gbuffer import make_camera_arrays
+    from nebulae_tpu_torch.utils.testscenes import bench_camera, procedural_envmap, textured_scene
+
+    env = procedural_envmap()
+    r = Renderer(fs, base_cfg, bvh=bvh, env_map=env)
+    dev = r.device
+    cam_obj = bench_camera(fs)
+    cam = make_camera_arrays(cam_obj, WIDTH, HEIGHT, dev)
+    wrappers = {"closest_fat4": kt.closest_hit_fat4, "shadow_closest_fat4": kt.shadow_closest_fat4,
+                "any_fat4": kt.any_hit_fat4, "atrous_fwd": ksvgf.atrous_step}
+    small = textured_scene(seed=0)
+    counts = {}
+    for name, opts in OPTION_CASES.items():
+        cfg = dataclasses.replace(base_cfg, **opts)
+        r.update_config(cfg)
+        r.state = init_frame_state(cfg, dev)
+        torch.cuda.reset_peak_memory_stats()
+        out, mean_ms, times, n = _frames(r, cam_obj, wrappers)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        missing = [k for k, c in n.items() if c == 0]
+        assert not missing, f"{name}: kernels not launched: {missing}"
+        per_frame = {k: c / 4 for k, c in n.items()}
+        want = 1 + cfg.spp if cfg.jitter_primary else 1
+        assert per_frame["closest_fat4"] == want, f"{name}: K1 {per_frame['closest_fat4']} a frame, not {want}"
+        counts[name] = n
+        log(f"options {name}: {mean_ms:.2f} ms/frame (frames {[round(t, 2) for t in times]}), ldr mean "
+            f"{float(out['ldr'].mean()):.4f}, peak device memory {peak:.2f} GiB, launches per frame "
+            f"{json.dumps(per_frame)}")
+        profile_frame(lambda: r.render(cam_obj), FAT4_KERNELS, mean_ms, what=f"{name} frame")
+        del out
+        train_phase(r, cam, cfg, wrappers, what=f"options {name} train")
+        small_frame_check(small, opts, env, what=f"options {name} small frame")
+        small_train_check(small, opts, env, what=f"options {name} small train step")
+    return counts
+
+
 def bench_renderer(width=WIDTH, height=HEIGHT, bvh=None):
     """The ~139k-triangle bench scene's BVH (the C++ builder, unless one is
     given) and a Renderer of the main path's configuration -> (fs, bvh,
@@ -1305,15 +1502,18 @@ BVH_FIELDS = ("node_lo", "node_hi", "node_first", "node_count", "node_skip", "no
 
 def ab_capture(path: str) -> None:
     """Save the bench scene's BVH, K2's and K3's launches in one bench-scene
-    frame at each of AB_SIZES, and K7b's and K7c's launches in one 1080p
-    bvh_wide=2 frame on the same BVH."""
+    frame at each of AB_SIZES, K7b's and K7c's launches in one 1080p
+    bvh_wide=2 frame on the same BVH, and K8's launches, each with its
+    one-node tables, in one 1080p frame of the box (the one-node route) and
+    of the ~2M scene with bvh_wide=2 (its single-leaf subtree chunks)."""
     import dataclasses
 
     import torch
 
+    from nebulae_tpu_torch.bvh.cbuilder import build_bvh_native
     from nebulae_tpu_torch.engine.renderer import Renderer
     from nebulae_tpu_torch.kernels import trace as kt
-    from nebulae_tpu_torch.utils.testscenes import bench_camera
+    from nebulae_tpu_torch.utils.testscenes import bench_camera, box_scene, huge_scene
 
     fs, bvh, cfg, renderer = bench_renderer()
     k2, k3 = {}, {}
@@ -1323,8 +1523,20 @@ def ab_capture(path: str) -> None:
             lambda: renderer.render(bench_camera(fs)), kt.shadow_closest_fat4, kt.any_hit_fat4)
     fat2 = Renderer(fs, dataclasses.replace(cfg, bvh_wide=2), bvh=bvh)
     k7b, k7c = recorded_launches(lambda: fat2.render(bench_camera(fs)), kt.shadow_closest_fat, kt.any_hit_fat)
+    del fat2
+    box = box_scene()
+    k8_box = node_launches(lambda: Renderer(box, dataclasses.replace(cfg, tracer="pallas")).render(bench_camera(box)))
+    huge = huge_scene(seed=0)
+    r2f = Renderer(huge, dataclasses.replace(cfg, bvh_wide=2), bvh=build_bvh_native(huge.tri_pos, max_leaf=15))
+    k8_huge = node_launches(lambda: r2f.render(bench_camera(huge)))
+
+    def keep(recs):
+        return [(walk, o, d, {k: tab[k] for k in ("nodes", "tris", "stack_depth")}, cap)
+                for walk, o, d, tab, cap in recs]
+
     torch.save({"bvh": {k: torch.from_numpy(getattr(bvh, k)) for k in BVH_FIELDS},
-                "frames": k2, "k3_frames": k3, "k7b_frame": k7b, "k7c_frame": k7c}, path)
+                "frames": k2, "k3_frames": k3, "k7b_frame": k7b, "k7c_frame": k7c,
+                "k8_box": keep(k8_box), "k8_huge": keep(k8_huge)}, path)
 
 
 def _digest(*tensors) -> str:
@@ -1406,16 +1618,19 @@ def device_ms(fn, runs: int) -> tuple[float, int]:
     # A profiler session now and then records no device events at all (seen
     # once in ~150 sessions of one process): such a session is run again,
     # and the row says so.
-    for empty in range(3):
+    seen = set()
+    for empty in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
-        durs = [e["dur"] for e in _trace_events(prof)
+        events = _trace_events(prof)
+        durs = [e["dur"] for e in events
                 if e.get("cat") == "kernel" and _PORT_KERNEL.search(e.get("name", ""))]
         if durs:
             return sum(durs) / runs / 1e3, empty
-    raise RuntimeError("three profiler sessions recorded no launch of a port kernel")
+        seen |= {(e.get("cat"), e.get("name", "")[:60]) for e in events if e.get("cat") in DEVICE_CATS}
+    raise RuntimeError(f"five profiler sessions recorded no launch of a port kernel; device events {sorted(seen)}")
 
 
 def _ab_launch(walk, n_rays, args, most, runs) -> dict:
@@ -1440,6 +1655,7 @@ def _ab_launch(walk, n_rays, args, most, runs) -> dict:
 # --ab: K3's, K7b's and K7c's bodies on strided subsets of phase 4's sorted
 # rays, to place the cutoff between them.
 AB_SWEEP = (1 << 17, 1 << 18, 1 << 19, 1 << 20)
+K8_SWEEP = (1 << 12, 1 << 14, 1 << 15, 1 << 16, 1 << 18)
 
 
 def ab_child(tree: str, path: str, runs: int) -> dict:
@@ -1523,6 +1739,30 @@ def ab_child(tree: str, path: str, runs: int) -> dict:
                         for size, launches in saved["k3_frames"].items()}
     res["k7b_frame"] = [_ab_launch(k7b, 3, c, most_k7b, runs) for c in saved["k7b_frame"]]
     res["k7c_frame"] = [_ab_launch(k7c, 2, c, most_k7c, runs) for c in saved["k7c_frame"]]
+    # K8 on each saved launch over its own one-node tables (both walks have
+    # a group body where the tree's library holds one).
+    # Each walk's largest launch is also run on strided subsets (K8_SWEEP),
+    # with both bodies where the walk has two, to place the cutoff between
+    # them: the tree's own cutoff for its closest-hit group body.
+    most_k8 = {"closest": kt.node_group_rays() if "closest_node_group_kernel" in names else None,
+               "any": most if "any_node_group_kernel" in names else None}
+    for key in ("k8_box", "k8_huge"):
+        rows, sweep = [], []
+        for walk, o8, d8, tab, cap in saved[key]:
+            fn = kt.closest_hit_node if walk == "closest" else kt.any_hit_node
+            row = _ab_launch(lambda a, b, t, fn=fn, tab=tab: fn(a, b, tab, t), 2, (o8, d8, cap), most_k8[walk],
+                             runs)
+            rows.append({"walk": walk, **row})
+        for walk in ("closest", "any"):
+            _, o8, d8, tab, cap = max((r for r in saved[key] if r[0] == walk), key=lambda r: r[1].shape[0])
+            fn = kt.closest_hit_node if walk == "closest" else kt.any_hit_node
+            for n in (m for m in K8_SWEEP if m < o8.shape[0]):
+                pick = torch.linspace(0, o8.shape[0] - 1, n, device=o8.device).long()
+                cap_n = cap[pick] if torch.is_tensor(cap) and cap.dim() > 0 else cap
+                row = _ab_launch(lambda a, b, t, fn=fn, tab=tab: fn(a, b, tab, t), 2,
+                                 (o8[pick].contiguous(), d8[pick].contiguous(), cap_n), most_k8[walk], runs)
+                sweep.append({"walk": walk, **row})
+        res[key], res[f"{key}_sweep"] = rows, sweep
     phi = (cfg.svgf_phi_color, cfg.svgf_phi_normal, cfg.svgf_phi_depth)
     gen = torch.Generator(device="cuda").manual_seed(99)
     digests = {"k4": [], "k5": []}
@@ -1621,10 +1861,22 @@ def ab_main(argv) -> int:
             summary[f"k3 {size}"] = rows_median(rs, lambda r: r["k3_frames"][size])
         for name in ("k7b", "k7c"):
             summary[f"{name} 1920x1080 fat2"] = rows_median(rs, lambda r: r[f"{name}_frame"])
+        for key, what in (("k8_box", "k8 box frame"), ("k8_huge", "k8 2M fat2 frame")):
+            rows = rows_median(rs, lambda r: r[key])
+            summary[what] = rows
+            summary[f"{what} sweep"] = rows_median(rs, lambda r: r[f"{key}_sweep"])
+            for walk in ("closest", "any"):
+                mine = [row for row in rows if row["walk"] == walk]
+                summary[f"{what} {walk} dev_ms"] = sum(row["dev_ms"] for row in mine)
+                if any("thread_dev_ms" in row for row in mine):
+                    # The same launches with one thread per ray on each.
+                    summary[f"{what} {walk} thread-only dev_ms"] = sum(
+                        row.get("thread_dev_ms", row["dev_ms"]) for row in mine)
         summary["digests"] = sorted({
             (*(r[f"{k}_digest"] for k in ("k1", "k7a", "k2", "k3", "k7b", "k7c", "k4", "k5")),
              *(c["digest"] for f in ("k2_frames", "k3_frames") for rows in r[f].values() for c in rows),
-             *(c["digest"] for f in ("k7b_frame", "k7c_frame") for c in r[f])) for r in rs})
+             *(c["digest"] for f in ("k7b_frame", "k7c_frame", "k8_box", "k8_huge") for c in r[f]))
+            for r in rs})
         log(f"{tree}: {json.dumps(summary)}")
     base = sass(args.trees[0])
     for tree in args.trees[1:]:
@@ -1659,8 +1911,6 @@ def main() -> int:
         print(__doc__, file=sys.stderr)
         return 2
 
-    from nebulae_tpu_torch.config import RenderConfig
-    from nebulae_tpu_torch.engine.renderer import Renderer
     from nebulae_tpu_torch.kernels import chunks as kc
     from nebulae_tpu_torch.kernels import svgf as ksvgf
     from nebulae_tpu_torch.kernels import trace as kt
@@ -1935,18 +2185,7 @@ def main() -> int:
     profile_frame(lambda: renderer.render(cam_obj), FAT4_KERNELS, frame_s * 1e3)
 
     # A small frame on the GPU against the CPU through the plain versions.
-    small = textured_scene(seed=0)
-    kw = dict(width=64, height=64, max_bounces=BOUNCES, enable_svgf=True, enable_tonemap=True)
-    cam_small = bench_camera(small)
-    out_g = Renderer(small, RenderConfig(**kw)).render(cam_small)
-    out_c = Renderer(small, RenderConfig(**kw), device="cpu").render(cam_small)
-    for k in ("hdr", "denoised", "ldr"):
-        a, b = out_g[k].cpu(), out_c[k]
-        assert bool(torch.isfinite(a).all()), f"small frame {k} not finite"
-        close = torch.isclose(a, b, rtol=1e-3, atol=1e-4).all(dim=-1).float().mean()
-        assert float(close) >= 0.99, f"small frame {k}: only {float(close):.4f} of pixels agree"
-    log(f"small frame: GPU agrees with the CPU plain path (ldr mean |d| "
-        f"{float((out_g['ldr'].cpu() - out_c['ldr']).abs().mean()):.3g})")
+    small_frame_check(textured_scene(seed=0))
     clock.done("slice")
 
     # 6. train: the inverse-rendering step at the same width
@@ -1969,7 +2208,11 @@ def main() -> int:
     launches.update(fat2_launches)
     clock.t = time.perf_counter()
 
-    # 9. summary
+    # 9. options: primary jitter, fast bounce shading and the env-map sky
+    options_phase(cfg, fs, bvh)
+    clock.done("options")
+
+    # 10. summary
     sources = {
         "closest_fat4": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1202"),
         "shadow_closest_fat4": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1415"),

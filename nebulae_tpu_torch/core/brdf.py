@@ -21,6 +21,7 @@ from nebulae_tpu_torch.core.math import (
     maximum,
     normalize,
 )
+from nebulae_tpu_torch.core.surface import gather_rows
 
 F0_DIELECTRIC = 0.04
 PI = 3.14159265358979
@@ -159,7 +160,9 @@ def sky_radiance(d, sky_color):
 
 
 def sky_envmap(d, env_map):
-    """Lat-long environment-map lookup, bilinear (phi -> u, theta -> v)."""
+    """Lat-long environment-map lookup, bilinear (phi -> u, theta -> v).
+    Differentiable in the map: its four texel gathers go through
+    surface.gather_rows, whose backward is one bincount."""
     h, w = env_map.shape[0], env_map.shape[1]
     phi = torch.atan2(d[..., 2], d[..., 0])
     theta = torch.acos(torch.clamp(d[..., 1], -1.0, 1.0))
@@ -173,20 +176,24 @@ def sky_envmap(d, env_map):
     x1i = torch.remainder(x0i + 1, w)
     y0i = torch.clamp(y0.to(torch.int32), 0, h - 1).long()
     y1i = torch.clamp(y0i + 1, 0, h - 1)
-    c00 = env_map[y0i, x0i]
-    c01 = env_map[y0i, x1i]
-    c10 = env_map[y1i, x0i]
-    c11 = env_map[y1i, x1i]
+    texels = env_map.reshape(h * w, env_map.shape[2])
+    lead = d.shape[:-1]
+
+    def tap(y, x):
+        return gather_rows(texels, (y * w + x).reshape(-1)).reshape(lead + (texels.shape[1],))
+
+    c00 = tap(y0i, x0i)
+    c01 = tap(y0i, x1i)
+    c10 = tap(y1i, x0i)
+    c11 = tap(y1i, x1i)
     top = c00 * (1.0 - fx) + c01 * fx
     bot = c10 * (1.0 - fx) + c11 * fx
     return top * (1.0 - fy) + bot * fy
 
 
 def sky_eval(d, sun, scene, cfg):
-    """Sky radiance along miss directions d."""
-    if cfg.enable_envmap:
-        raise NotImplementedError(
-            "enable_envmap in the frame is not ported yet (ROADMAP Queue 1, "
-            "item 14: environment-map sky); only the brdf.sky_envmap lookup is"
-        )
+    """Sky radiance along miss directions d: the scene's "env_map" when
+    cfg.enable_envmap and the scene holds one, else the constant sky."""
+    if cfg.enable_envmap and "env_map" in scene:
+        return sky_envmap(d, scene["env_map"])
     return sky_radiance(d, sun.sky_color)

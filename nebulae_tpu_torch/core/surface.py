@@ -177,3 +177,39 @@ def reconstruct_surface(scene: dict, tri_id, u, v, view_dir=None, mip_level=None
         "metalness": clip(metal, 0.0, 1.0),
         "emissive": emissive,
     }
+
+
+def reconstruct_surface_fast(scene: dict, tri_id, u, v, ray_o, ray_d, t):
+    """Cheap surface reconstruction for secondary bounces
+    (cfg.fast_bounce_shading): position from the ray equation, the shading
+    normal interpolated and the geometric normal read from the `tri_fast`
+    row, and the material from the texture-averaged `mat_avg_*` tables, with
+    no texture fetch.  The keys of reconstruct_surface without uv."""
+    tid = torch.clamp(tri_id, 0, scene["tri_pos"].shape[0] - 1).long()
+    tcl = torch.clamp(t, 0.0, 1e30)
+    pos = ray_o + tcl[..., None] * ray_d
+    row = take_rows(scene["tri_fast"], tid)
+    nrm = normalize(bary_packed(row[..., 0:9], u, v, 3))
+    ng = row[..., 9:12]
+    mat = f32_int(row[..., 12])
+    flip = torch.where(dot(nrm, -ray_d) < 0.0, -1.0, 1.0)
+    ns = nrm * flip
+    ng = ng * torch.where(dot(ng, ns) < 0.0, -1.0, 1.0)
+    return {
+        "position": pos,
+        "normal_g": ng,
+        "normal_s": ns,
+        **average_material(scene, mat),
+    }
+
+
+def average_material(scene: dict, mat):
+    """albedo, roughness, metalness and emissive of materials `mat` (int64
+    rows) from the texture-averaged tables, clamped as reconstruct_surface
+    clamps them."""
+    return {
+        "albedo": gather_rows(scene["mat_avg_albedo"], mat),
+        "roughness": clip(gather_rows(scene["mat_avg_rough"], mat), 0.02, 1.0),
+        "metalness": clip(gather_rows(scene["mat_avg_metal"], mat), 0.0, 1.0),
+        "emissive": gather_rows(scene["mat_avg_emissive"], mat),
+    }

@@ -113,6 +113,11 @@
 // 0.318 against 0.313, K7c at 2^21 rays 0.268 against 0.266).  K1's SASS
 // moved with closest_leaf and its time did not (0.262 both); K3's SASS is
 // unchanged.
+// K8 (closest_node_kernel, closest_node_group_kernel, any_node_kernel)
+// took K1's levers and the shared leaf loops; its closest hit keeps a group
+// body for launches that fit one wave of the card, its any hit one thread
+// per ray (what was measured is above its kernels).  Every other kernel's
+// SASS stayed the parent's.
 //
 // Build with --fmad=false: the plain PyTorch version rounds after every
 // multiply and add, and nvcc would otherwise contract a*b-c into an FMA.
@@ -156,43 +161,6 @@ __device__ __forceinline__ Ray make_ray(float ox, float oy, float oz, float dx, 
   r.oix = ox * r.ix; r.oiy = oy * r.iy; r.oiz = oz * r.iz;
   r.pos[0] = dx >= 0.0f; r.pos[1] = dy >= 0.0f; r.pos[2] = dz >= 0.0f;
   return r;
-}
-
-// Slab test of box k of a node row (lo.xyz, hi.xyz at 6k).
-__device__ __forceinline__ bool slab(const float* __restrict__ row, int k, const Ray& r,
-                                     float cap) {
-  const float* b = row + 6 * k;
-  float t0x = __ldg(b + 0) * r.ix - r.oix;
-  float t1x = __ldg(b + 3) * r.ix - r.oix;
-  float t0y = __ldg(b + 1) * r.iy - r.oiy;
-  float t1y = __ldg(b + 4) * r.iy - r.oiy;
-  float t0z = __ldg(b + 2) * r.iz - r.oiz;
-  float t1z = __ldg(b + 5) * r.iz - r.oiz;
-  float tenter = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
-  float texit = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
-  return (tenter <= texit) && (texit > kEps) && (tenter < cap);
-}
-
-// Two-sided Moller-Trumbore against one triangle row (v0, e1, e2, id).
-__device__ __forceinline__ bool moller(const float* __restrict__ tv, const Ray& r, float cap,
-                                       float& t, float& u, float& v) {
-  float v0x = __ldg(tv + 0), v0y = __ldg(tv + 1), v0z = __ldg(tv + 2);
-  float e1x = __ldg(tv + 3), e1y = __ldg(tv + 4), e1z = __ldg(tv + 5);
-  float e2x = __ldg(tv + 6), e2y = __ldg(tv + 7), e2z = __ldg(tv + 8);
-  float px = r.dy * e2z - r.dz * e2y;
-  float py = r.dz * e2x - r.dx * e2z;
-  float pz = r.dx * e2y - r.dy * e2x;
-  float det = (e1x * px + e1y * py) + e1z * pz;
-  float inv_det = (fabsf(det) < kEps) ? 0.0f : 1.0f / (det == 0.0f ? 1.0f : det);
-  float tvx = r.ox - v0x, tvy = r.oy - v0y, tvz = r.oz - v0z;
-  u = ((tvx * px + tvy * py) + tvz * pz) * inv_det;
-  float qx = tvy * e1z - tvz * e1y;
-  float qy = tvz * e1x - tvx * e1z;
-  float qz = tvx * e1y - tvy * e1x;
-  v = ((r.dx * qx + r.dy * qy) + r.dz * qz) * inv_det;
-  t = ((e2x * qx + e2y * qy) + e2z * qz) * inv_det;
-  return (fabsf(det) >= kEps) && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
-         (t > kEps) && (t < cap);
 }
 
 __device__ __forceinline__ bool is_leaf(int field) {
@@ -250,7 +218,8 @@ __device__ __forceinline__ Tri load_tri(const float* __restrict__ tv) {
   return {a.x, a.y, b.x, b.y, c.x, c.y, d.x, d.y, e.x, __float_as_int(e.y)};
 }
 
-// moller() on a triangle already in registers.
+// Two-sided Moller-Trumbore against a triangle row (v0, e1, e2, id) in
+// registers.
 __device__ __forceinline__ bool moller_tri(const Tri& tr, const Ray& r, float cap, float& t,
                                            float& u, float& v) {
   float px = r.dy * tr.e2z - r.dz * tr.e2y;
@@ -770,8 +739,95 @@ __global__ void any_fat4_group_kernel(const float* __restrict__ o, const float* 
 // enc as int32 bits (leaf: first_slot*32 + slots; inner: right*32 + 16 +
 // axis*2 + left_is_lower, left child = node + 1).  A node's own box is
 // tested when it is popped; a leaf then intersects its slots.
+//
+// K8 redesigned for Hopper.  Its real launches walk one node: the tables
+// of a root-leaf scene (the one-node route) and of a single-leaf subtree
+// chunk hold one row, so a ray's cost is one row, one slab test and, for
+// the rays that enter the box, one leaf of field * G triangles (8 on the
+// ~2M scene's single-leaf chunks, 16 for the 12-triangle box).  Both walks
+// take K1's levers: the 32-byte row as two 16-byte loads (lo.xyz + hi.x,
+// then hi.yz + enc + pad) with box and enc in registers, and the leaf's
+// contiguous slots through the shared leaf loops (8-byte triangle loads,
+// the loop unrolled by 4).  The general walk stays as it was: the near
+// child on top for closest hit, the Pallas kernel's fixed right-below-left
+// order for any hit.  Device time against the kernels before this design
+// on the same launches (chip_smoke.py --ab, A B B A twice; H100 80GB HBM3
+// at 700 W):
+//   - closest, one thread per ray: a 1080p frame's 2M primary rays over a
+//     single-leaf chunk of the ~2M scene 0.0538 -> 0.0364 ms, over the box
+//     0.0865 -> 0.0784; the ~2M scene's 439k-ray bounce launches 0.0111 ->
+//     0.0058, the box's 1.26M-ray one 0.0336 -> 0.0228;
+//   - closest, kGroup lanes a ray (closest_node_group_kernel): 10.8k- and
+//     5.4k-ray launches 0.0041 -> 0.0025 ms.  On subsets of the chunk's
+//     primary rays it beats one thread per ray 1.6x at 4,096 rays, 1.4x at
+//     16,384 and ties at 32,768; at 65,536 it loses 1.9x and at 262,144
+//     6.3x (the box's rays: 2.0x, 1.6x, tie, 1.8x slower), since most rays
+//     miss a single leaf's box and the group then spends 8 lanes on one
+//     slab test.  So it runs only while its lanes fit one wave of the card
+//     (kNodeGroupWaves: 33,792 rays on an H100);
+//   - any hit, one thread per ray (any_node_kernel): unchanged, 0.0137 ms
+//     on the box's 1.26M shadow rays and 0.0047 on a 439k-ray launch: its
+//     rays mostly miss the box, so the row and ray loads are its work.  A
+//     group body lost on every launch and subset measured, 1,093 to 439k
+//     rays (0.0018 against 0.0017 ms at 1,093, 0.026 against 0.0047 at
+//     439k), and was dropped.
 constexpr int kOneNodeStride = 8;
 
+struct NodeRow {
+  Box box;
+  int enc;
+};
+
+__device__ __forceinline__ NodeRow load_node(const float* __restrict__ nodes, int node) {
+  const float4* row =
+      reinterpret_cast<const float4*>(nodes) + static_cast<int64_t>(node) * (kOneNodeStride / 4);
+  float4 a = __ldg(row), b = __ldg(row + 1);
+  return {{a.x, a.y, a.z, a.w, b.x, b.y}, __float_as_int(b.z)};
+}
+
+// One leaf's `count` triangles from `slot` for K8's closest-hit group body:
+// each lane tests its triangles j = sub, sub + kGroup, ... against the cap
+// from before the leaf and keeps its least t (the earliest j on a tie); the
+// group's least (t, j) is the hit the sequential test under the running cap
+// gives.  Every lane of the group calls it with the same arguments except
+// `sub`, and leaves with the same bt, btri, bu and bv.
+__device__ __forceinline__ void closest_leaf_group(const float* __restrict__ slot, int count,
+                                                   int sub, int base, unsigned group, const Ray& r,
+                                                   float& bt, int& btri, float& bu, float& bv) {
+  float best_t = bt, best_u = 0.0f, best_v = 0.0f;
+  int best_j = count, best_id = -1;
+  for (int j = sub; j < count; j += kGroup) {
+    Tri tr = load_tri(slot + j * kTriStride);
+    float t, u, v;
+    if (moller_tri(tr, r, bt, t, u, v) && t < best_t) {
+      best_t = t;
+      best_j = j;
+      best_u = u;
+      best_v = v;
+      best_id = tr.id;
+    }
+  }
+  float win_t = best_t;
+  int win_j = best_j;
+#pragma unroll
+  for (int off = kGroup / 2; off > 0; off >>= 1) {
+    float ot = __shfl_xor_sync(group, win_t, off);
+    int oj = __shfl_xor_sync(group, win_j, off);
+    if (ot < win_t || (ot == win_t && oj < win_j)) {
+      win_t = ot;
+      win_j = oj;
+    }
+  }
+  if (win_j < count) {
+    int owner = base + win_j % kGroup;
+    bt = win_t;
+    btri = __shfl_sync(group, best_id, owner);
+    bu = __shfl_sync(group, best_u, owner);
+    bv = __shfl_sync(group, best_v, owner);
+  }
+}
+
+// K8 closest hit, one thread per ray.
 __global__ void closest_node_kernel(const float* __restrict__ o, const float* __restrict__ d,
                                     const float* __restrict__ tmax, int tmax_stride,
                                     const float* __restrict__ nodes,
@@ -786,33 +842,21 @@ __global__ void closest_node_kernel(const float* __restrict__ o, const float* __
   float bu = 0.0f, bv = 0.0f;
   if (!is_dead(r.ox, r.dx, r.dy, r.dz) && bt > kEps) {
     int stack[kStackMax];
+    unsigned pos = pos_bits(r);
     int sp = 0;
     stack[sp++] = 0;
     while (sp > 0) {
       int node = stack[--sp];
-      const float* row = nodes + static_cast<int64_t>(node) * kOneNodeStride;
-      if (!slab(row, 0, r, bt)) continue;
-      int enc = __float_as_int(__ldg(row + 6));
-      int field = enc & 31, meta = enc >> 5;
+      NodeRow nr = load_node(nodes, node);
+      if (!slab_box(nr.box, r, bt)) continue;
+      int field = nr.enc & 31, meta = nr.enc >> 5;
       if (is_leaf(field)) {
-        for (int s = 0; s < field; ++s) {
-          const float* slot = tris + (static_cast<int64_t>(meta) + s) * G * kTriStride;
-          for (int g = 0; g < G; ++g) {
-            const float* tv = slot + g * kTriStride;
-            float t, u, v;
-            if (moller(tv, r, bt, t, u, v)) {
-              bt = t;
-              btri = __float_as_int(__ldg(tv + 9));
-              bu = u;
-              bv = v;
-            }
-          }
-        }
+        closest_leaf(tris + static_cast<int64_t>(meta) * G * kTriStride, field * G, r, bt, btri, bu,
+                     bv);
       } else if (field >= kInnerField) {
         // Near child on top: the left child is nearer when the ray's sign
         // on the split axis agrees with left_is_lower.
-        int code = field - kInnerField;
-        bool near_is_left = r.pos[code >> 1] == ((code & 1) != 0);
+        bool near_is_left = near_first_bits(field - kInnerField, pos);
         stack[sp++] = near_is_left ? meta : node + 1;
         stack[sp++] = near_is_left ? node + 1 : meta;
       }
@@ -824,6 +868,52 @@ __global__ void closest_node_kernel(const float* __restrict__ o, const float* __
   v_out[i] = bv;
 }
 
+// K8 closest hit's group body: kGroup lanes walk one ray, each lane with
+// the same row, box test and stack; a leaf's triangles are dealt out.
+__global__ void closest_node_group_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                                          const float* __restrict__ tmax, int tmax_stride,
+                                          const float* __restrict__ nodes,
+                                          const float* __restrict__ tris, int G, int n,
+                                          float* __restrict__ t_out, int32_t* __restrict__ tri_out,
+                                          float* __restrict__ u_out, float* __restrict__ v_out) {
+  int i = (blockIdx.x * blockDim.x + threadIdx.x) / kGroup;
+  if (i >= n) return;  // the whole group
+  const int sub = threadIdx.x % kGroup;
+  const int base = (threadIdx.x & 31) - sub;
+  const unsigned group = ((1u << kGroup) - 1u) << base;
+  Ray r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1], d[3 * i + 2]);
+  float bt = tmax[i * tmax_stride];
+  int btri = -1;
+  float bu = 0.0f, bv = 0.0f;
+  if (!is_dead(r.ox, r.dx, r.dy, r.dz) && bt > kEps) {
+    int stack[kStackMax];
+    unsigned pos = pos_bits(r);
+    int sp = 0;
+    stack[sp++] = 0;
+    while (sp > 0) {
+      int node = stack[--sp];
+      NodeRow nr = load_node(nodes, node);
+      if (!slab_box(nr.box, r, bt)) continue;
+      int field = nr.enc & 31, meta = nr.enc >> 5;
+      if (is_leaf(field)) {
+        closest_leaf_group(tris + static_cast<int64_t>(meta) * G * kTriStride, field * G, sub, base,
+                           group, r, bt, btri, bu, bv);
+      } else if (field >= kInnerField) {
+        bool near_is_left = near_first_bits(field - kInnerField, pos);
+        stack[sp++] = near_is_left ? meta : node + 1;
+        stack[sp++] = near_is_left ? node + 1 : meta;
+      }
+    }
+  }
+  if (sub == 0) {
+    t_out[i] = btri >= 0 ? bt : __int_as_float(0x7f800000);
+    tri_out[i] = btri;
+    u_out[i] = bu;
+    v_out[i] = bv;
+  }
+}
+
+// K8 any hit, one thread per ray: out at the first hit.
 __global__ void any_node_kernel(const float* __restrict__ o, const float* __restrict__ d,
                                 const float* __restrict__ tmax, int tmax_stride,
                                 const float* __restrict__ nodes,
@@ -840,21 +930,11 @@ __global__ void any_node_kernel(const float* __restrict__ o, const float* __rest
     stack[sp++] = 0;
     while (sp > 0 && !occ) {
       int node = stack[--sp];
-      const float* row = nodes + static_cast<int64_t>(node) * kOneNodeStride;
-      if (!slab(row, 0, r, cap)) continue;
-      int enc = __float_as_int(__ldg(row + 6));
-      int field = enc & 31, meta = enc >> 5;
+      NodeRow nr = load_node(nodes, node);
+      if (!slab_box(nr.box, r, cap)) continue;
+      int field = nr.enc & 31, meta = nr.enc >> 5;
       if (is_leaf(field)) {
-        for (int s = 0; s < field && !occ; ++s) {
-          const float* slot = tris + (static_cast<int64_t>(meta) + s) * G * kTriStride;
-          for (int g = 0; g < G; ++g) {
-            float t, u, v;
-            if (moller(slot + g * kTriStride, r, cap, t, u, v)) {
-              occ = true;
-              break;
-            }
-          }
-        }
+        occ = any_leaf(tris + static_cast<int64_t>(meta) * G * kTriStride, field * G, r, cap);
       } else if (field >= kInnerField) {
         // The Pallas kernel's order: right child below, left child on top.
         stack[sp++] = meta;
@@ -1208,7 +1288,8 @@ inline int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
 // rays (1080p) group 0.380 ms against 0.463; 788k (1440p) 0.707 against
 // 0.513; 1.77M (2160p) 1.414 against 0.850.  Every later launch (7.5k-59k
 // rays) is 2-4x faster as a group.  K3, K7b and K7c (launch_any_fat4,
-// nb_combo_fat, nb_any_fat) take the same cutoff through launch_by_size.
+// nb_combo_fat, nb_any_fat) take the same cutoff through launch_by_size,
+// K8's closest hit a sixteenth of it (kNodeGroupWaves).
 constexpr int64_t kGroupWaves = 16;
 constexpr int kMaxDevices = 64;
 
@@ -1232,15 +1313,20 @@ cudaError_t group_rays(int64_t* rays) {
   return cudaSuccess;
 }
 
+// K8's closest hit takes its group body only while the group's lanes fit
+// one wave of the card (see above closest_node_group_kernel).
+constexpr int64_t kNodeGroupWaves = 1;
+
 // Enqueues a walk of n rays: group() (its group body, kGroup lanes a ray)
-// up to group_rays() rays, else thread() (one thread per ray).
+// up to group_rays() rays (or `waves` waves of the group's lanes), else
+// thread() (one thread per ray).
 template <class Group, class Thread>
-int launch_by_size(int n, Group group, Thread thread) {
+int launch_by_size(int n, Group group, Thread thread, int64_t waves = kGroupWaves) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   int64_t most = 0;
   cudaError_t err = group_rays(&most);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n <= most) {
+  if (n <= most / kGroupWaves * waves) {
     group();
   } else {
     thread();
@@ -1308,8 +1394,8 @@ int nb_combo_fat4(const float* o, const float* b, const float* l, const float* t
 }
 
 // The most rays for which K2, K3 (all their builds), K7b and K7c run their
-// group bodies on the current device; one thread per ray above it (K1 and
-// K7a always take one thread per ray).
+// group bodies on the current device; one thread per ray above it (K1, K7a
+// and K8's any hit always take one thread per ray).
 int nb_group_rays(int64_t* rays) { return static_cast<int>(group_rays(rays)); }
 
 int nb_any_fat4(const float* o, const float* d, const float* tmax, int tmax_stride,
@@ -1389,15 +1475,24 @@ int nb_any_fat(const float* o, const float* d, const float* tmax, int tmax_strid
       });
 }
 
-// K8 over one-node rows.
+// K8 over one-node rows: closest hit's group body up to
+// nb_node_group_rays() rays, one thread per ray above; any hit one thread
+// per ray.
 int nb_closest_node(const float* o, const float* d, const float* tmax, int tmax_stride,
                     const float* nodes, const float* tris, int G, int n, float* t,
                     int32_t* tri, float* u, float* v, void* stream) {
-  if (n > 0) {
-    closest_node_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, d, tmax, tmax_stride, nodes, tris, G, n, t, tri, u, v);
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return launch_by_size(
+      n,
+      [&] {
+        closest_node_group_kernel<<<grid_for(n * kGroup), kThreads, 0, st>>>(
+            o, d, tmax, tmax_stride, nodes, tris, G, n, t, tri, u, v);
+      },
+      [&] {
+        closest_node_kernel<<<grid_for(n), kThreads, 0, st>>>(o, d, tmax, tmax_stride, nodes, tris,
+                                                              G, n, t, tri, u, v);
+      },
+      kNodeGroupWaves);
 }
 
 int nb_any_node(const float* o, const float* d, const float* tmax, int tmax_stride,
@@ -1408,6 +1503,15 @@ int nb_any_node(const float* o, const float* d, const float* tmax, int tmax_stri
         o, d, tmax, tmax_stride, nodes, tris, G, n, occ);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The most rays for which K8's closest hit runs its group body on the
+// current device.
+int nb_node_group_rays(int64_t* rays) {
+  int64_t most = 0;
+  cudaError_t err = group_rays(&most);
+  *rays = most / kGroupWaves * kNodeGroupWaves;
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

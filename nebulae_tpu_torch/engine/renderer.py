@@ -45,15 +45,9 @@ from nebulae_tpu_torch.tracer.trace import make_tracer
 
 def check_supported(cfg: RenderConfig) -> None:
     """Raise NotImplementedError for configurations this port does not cover."""
-    todo = {
-        "enable_nrc": "ROADMAP Queue 1, item 9: neural radiance cache",
-        "fast_bounce_shading": "ROADMAP Queue 1, item 5: fast shading",
-        "enable_envmap": "ROADMAP Queue 1, item 14: environment-map sky",
-        "jitter_primary": "ROADMAP Queue 1, item 4: primary jitter",
-    }
-    for name, item in todo.items():
-        if getattr(cfg, name):
-            raise NotImplementedError(f"{name}=True is not ported yet ({item})")
+    if cfg.enable_nrc:
+        raise NotImplementedError(
+            "enable_nrc=True is not ported yet (ROADMAP Queue 1, item 9: neural radiance cache)")
     if cfg.tracer == "bvh":
         raise NotImplementedError('tracer="bvh" is not ported (ROADMAP Queue 1, item 3)')
 
@@ -115,6 +109,36 @@ def init_frame_state(cfg: RenderConfig, device) -> dict:
     }
 
 
+def trace_samples(scene: dict, gbuf: dict, sun: SunLight, cam: dict, closest_fn, any_fn, rng_state,
+                  cfg: RenderConfig):
+    """The frame's cfg.spp samples from the G-buffer `gbuf`: path traced
+    (or direct-lit without GI) and averaged.  Returns (radiance [N, 3],
+    rng_state).  With cfg.jitter_primary each sample first draws its
+    sub-pixel offset (2 draws, before the path's draws: the draw-order
+    contract of core.brdf), traces its own jittered G-buffer (one more
+    primary closest-hit walk) and shows the sky along its own missed rays;
+    `gbuf` then only guides SVGF and the outputs."""
+    w, h = cfg.width, cfg.height
+    acc = torch.zeros((w * h, 3), dtype=torch.float32, device=gbuf["ray_d"].device)
+    for _ in range(cfg.spp):
+        sample_gbuf = gbuf
+        if cfg.jitter_primary:
+            rng_state, jx = nrng.next_float(rng_state)
+            rng_state, jy = nrng.next_float(rng_state)
+            o_j, d_j = camera_rays(cam, w, h, jitter=torch.stack([jx, jy], -1))
+            sample_gbuf = render_gbuffer(scene, closest_fn, o_j, d_j,
+                                         image_hw=(h, w) if cfg.texture_mips else None)
+        if cfg.enable_gi:
+            sample, rng_state = path_trace(scene, sample_gbuf, sun, closest_fn, any_fn, rng_state, cfg)
+        else:
+            sample, rng_state = shade_direct(scene, sample_gbuf, sun, any_fn, rng_state)
+        if cfg.jitter_primary:
+            sky = brdf.sky_eval(sample_gbuf["ray_d"], sun, scene, cfg)
+            sample = torch.where(sample_gbuf["hit"][..., None], sample, sky)
+        acc = acc + sample
+    return acc / cfg.spp, rng_state
+
+
 def render_frame(scene: dict, tables: dict | None, sun: SunLight, cam: dict, state: dict,
                  cfg: RenderConfig, device=None):
     """One frame.  `scene` (to_tensors of device_arrays), `tables` (a
@@ -128,7 +152,6 @@ def render_frame(scene: dict, tables: dict | None, sun: SunLight, cam: dict, sta
     dev = resolve_device(device)
     check_supported(cfg)
     w, h = cfg.width, cfg.height
-    n_pix = w * h
     closest_fn, any_fn = make_tracer(scene, tables, cfg, device=dev)
 
     with record_function("nebulae/gbuffer"):
@@ -140,16 +163,12 @@ def render_frame(scene: dict, tables: dict | None, sun: SunLight, cam: dict, sta
             torch.arange(h, device=dev), torch.arange(w, device=dev), indexing="ij"
         )
         rng_state = nrng.init_rng(xs.reshape(-1), ys.reshape(-1), w, state["frame"])
-        acc = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
-        for _ in range(cfg.spp):
-            if cfg.enable_gi:
-                sample, rng_state = path_trace(scene, gbuf, sun, closest_fn, any_fn, rng_state, cfg)
-            else:
-                sample, rng_state = shade_direct(scene, gbuf, sun, any_fn, rng_state)
-            acc = acc + sample
-        radiance = acc / cfg.spp
-        sky = brdf.sky_eval(gbuf["ray_d"], sun, scene, cfg)
-        radiance = torch.where(gbuf["hit"][..., None], radiance, sky)
+        radiance, _rng_state = trace_samples(scene, gbuf, sun, cam, closest_fn, any_fn, rng_state, cfg)
+        if not cfg.jitter_primary:
+            # Primary misses show the sky (with jitter each sample composited
+            # the sky along its own ray).
+            sky = brdf.sky_eval(gbuf["ray_d"], sun, scene, cfg)
+            radiance = torch.where(gbuf["hit"][..., None], radiance, sky)
 
     img = radiance.reshape(h, w, 3)
     depth = gbuf["depth"].reshape(h, w)
@@ -214,14 +233,18 @@ class Renderer:
     names the tables' route (see pack_scene_tables; "empty" for a scene
     without triangles, None without tables).  `bvh` is the tables' FlatBVH
     on the host (its topology; a refit keeps it), `node_lo` / `node_hi`
-    its bounds on the device, which `update_geometry` refits."""
+    its bounds on the device, which `update_geometry` refits.  `env_map`
+    (a lat-long [H, W, 3] float32 map) becomes scene["env_map"] on the
+    device, the sky that cfg.enable_envmap shows, as JAX's app sets it."""
 
     def __init__(self, flat_scene: FlatScene, cfg: RenderConfig, sun: SunLight | None = None,
-                 bvh=None, device=None):
+                 bvh=None, device=None, env_map=None):
         check_supported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.scene = to_tensors(flat_scene.device_arrays(), self.device)
+        if env_map is not None:
+            self.scene["env_map"] = torch.as_tensor(np.asarray(env_map, np.float32)).to(self.device)
         t_count = flat_scene.num_triangles
         needs_tables = cfg.tracer == "pallas" or (
             cfg.tracer == "auto" and t_count > cfg.bruteforce_max_tris

@@ -20,7 +20,9 @@ _HIST_KEYS = ("radiance", "depth", "normal", "moments", "histlen", "prev_viewpro
 
 
 def scene_from_arrays(arrays: dict, device) -> dict:
-    """A `FlatScene.device_arrays()` dict (numpy) -> scene tensors."""
+    """A `FlatScene.device_arrays()` dict, or a JAX Renderer's scene dict
+    (numpy), -> scene tensors.  Every key comes across, "env_map" (the sky
+    of enable_envmap, which JAX's app adds to the scene) included."""
     return to_tensors({k: np.asarray(v) for k, v in arrays.items()}, device)
 
 

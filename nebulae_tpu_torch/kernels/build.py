@@ -52,6 +52,7 @@ SIGNATURES = {
     "nb_combo_fat4_slots": ([_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
                              _P, _P, _P, _P, _P, _P], _I),
     "nb_group_rays": ([_P], _I),
+    "nb_node_group_rays": ([_P], _I),
     "nb_any_fat4_slots": ([_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P], _I),
     "nb_closest_fat": ([_P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P], _I),
     "nb_combo_fat": ([_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P], _I),

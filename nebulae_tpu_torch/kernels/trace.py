@@ -814,10 +814,10 @@ def _check_tables(tables, dev, nodes_key="fat4nodes"):
 
 
 def _check_wide_loads(tables, nodes_key="fat4nodes"):
-    """K1-K3 (and their paged and slot-gated builds) and K7a-K7c read a node
-    row as 16-byte loads and a triangle as 8-byte loads: a table whose start
-    is not so aligned (a view at an odd offset) is refused rather than read
-    misaligned."""
+    """K1-K3 (and their paged and slot-gated builds), K7a-K7c and K8 read a
+    node row as 16-byte loads and a triangle as 8-byte loads: a table whose
+    start is not so aligned (a view at an odd offset) is refused rather than
+    read misaligned."""
     if tables[nodes_key].data_ptr() % 16 or tables["tris"].data_ptr() % 8:
         raise ValueError(f"{nodes_key} must be 16-byte and tris 8-byte aligned for the walks' wide loads")
 
@@ -956,9 +956,19 @@ def _record(counter, *inputs):
 def group_rays() -> int:
     """The most rays for which K2, K3 (and their K6a / K6b builds), K7b and
     K7c run their group bodies, several lanes per ray, on the current CUDA
-    device; above it, one thread per ray (K1 and K7a always take one)."""
+    device; above it, one thread per ray (K1, K7a and K8's any hit always
+    take one)."""
     rays = ctypes.c_int64(0)
     check(native().lib.nb_group_rays(ctypes.byref(rays)), "nb_group_rays")
+    return int(rays.value)
+
+
+def node_group_rays() -> int:
+    """The most rays for which K8's closest hit runs its group body on the
+    current CUDA device: one wave of the group's lanes, a sixteenth of
+    group_rays()."""
+    rays = ctypes.c_int64(0)
+    check(native().lib.nb_node_group_rays(ctypes.byref(rays)), "nb_node_group_rays")
     return int(rays.value)
 
 
@@ -1075,14 +1085,14 @@ def closest_hit_node(o, d, tables: dict, t_max=float("inf")):
     """K8 closest hit over one-node tables -> dict(t, tri, u, v)."""
     return _closest("nb_closest_node", closest_hit_node,
                     lambda: closest_hit_node_plain(o, d, tables, t_max), o, d, tables, t_max,
-                    nodes_key="nodes")
+                    nodes_key="nodes", family_check=_check_wide_loads)
 
 
 def any_hit_node(o, d, tables: dict, t_max=float("inf")):
     """K8 any hit over one-node tables -> occluded [N] bool."""
     return _any("nb_any_node", any_hit_node,
                 lambda: any_hit_node_plain(o, d, tables, t_max), o, d, tables, t_max,
-                nodes_key="nodes")
+                nodes_key="nodes", family_check=_check_wide_loads)
 
 
 WRAPPERS = (

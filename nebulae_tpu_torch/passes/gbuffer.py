@@ -35,8 +35,9 @@ def make_camera_arrays(camera, width: int, height: int, device) -> dict:
     }
 
 
-def camera_rays(cam: dict, width: int, height: int):
-    """Pixel-centre primary rays in row-major order: (o, d) [H*W, 3]."""
+def camera_rays(cam: dict, width: int, height: int, jitter=None):
+    """Primary rays in row-major order: (o, d) [H*W, 3].  Through the pixel
+    centres, or with `jitter` [H*W, 2] at (x + jx, y + jy) in each pixel."""
     dev = cam["eye"].device
     ys, xs = torch.meshgrid(
         torch.arange(height, dtype=torch.float32, device=dev),
@@ -45,8 +46,12 @@ def camera_rays(cam: dict, width: int, height: int):
     )
     xs = xs.reshape(-1)
     ys = ys.reshape(-1)
-    u = ((xs + 0.5) / width * 2.0 - 1.0) * cam["tan_half"] * cam["aspect"]
-    v = (1.0 - (ys + 0.5) / height * 2.0) * cam["tan_half"]
+    if jitter is None:
+        jx = jy = 0.5
+    else:
+        jx, jy = jitter[..., 0], jitter[..., 1]
+    u = ((xs + jx) / width * 2.0 - 1.0) * cam["tan_half"] * cam["aspect"]
+    v = (1.0 - (ys + jy) / height * 2.0) * cam["tan_half"]
     d = u[:, None] * cam["right"][None] + v[:, None] * cam["up"][None] + cam["fwd"][None]
     d = normalize(d)
     o = cam["eye"].expand(d.shape)

@@ -1,10 +1,14 @@
-"""Wavefront path tracing from the G-buffer (full texture shading).
+"""Wavefront path tracing from the G-buffer.
 
-Counterpart of `nebulae_tpu/passes/pathtrace.py` for the full-shading
-path: at every vertex sun-disk NEE and the bounce draw, one fused
-shadow+bounce walk over the live lanes (kernel K2), next-vertex surface
-reconstruction on the compact hits (`_full_shading_compact_post`), lobe
-Russian roulette; NEE with an any-hit ray (kernel K3) at the last vertex.
+Counterpart of `nebulae_tpu/passes/pathtrace.py`: at every vertex
+sun-disk NEE and the bounce draw, one fused shadow+bounce walk over the
+live lanes (kernel K2), next-vertex surface reconstruction, lobe Russian
+roulette; NEE with an any-hit ray (kernel K3) at the last vertex.  The
+next vertex's surface is reconstructed on the compact hits, with full
+texture shading (`_full_shading_compact_post`) or, under
+`fast_bounce_shading` with sorted rays, from the `tri_fast` rows and the
+texture-averaged materials (`_fast_shading_compact_post`); fast shading
+without sorted rays reconstructs at full width after the walk, as JAX does.
 
 RNG contract (same as JAX): per vertex 2 draws NEE, then unless it is the
 last vertex 1 draw Russian roulette and 2 draws bounce direction.
@@ -20,11 +24,13 @@ from nebulae_tpu_torch.core import brdf
 from nebulae_tpu_torch.core import rng as nrng
 from nebulae_tpu_torch.core.math import clip, cross, dot, normalize
 from nebulae_tpu_torch.core.surface import (
+    average_material,
     bary_packed,
     f32_int,
     gather_rows,
     has_textures,
     normal_mapped,
+    reconstruct_surface_fast,
     sample_material_texels,
     take_rows,
 )
@@ -114,14 +120,59 @@ def _full_shading_compact_post(scene):
     return post, fills
 
 
+def _compact_reconstruct_mode(scene, cfg):
+    """"fast" | "full" | None: which compact-domain reconstruct applies.
+    As in JAX, fast shading reconstructs in the compact domain only with
+    sorted rays and a non-empty `tri_fast` table, else at full width (None).
+    Full shading always runs in the compact domain: the port compacts the
+    live lanes exactly with or without the sort, and no output depends on
+    their order."""
+    if cfg.fast_bounce_shading:
+        return "fast" if cfg.sort_rays and scene["tri_fast"].shape[0] > 0 else None
+    return "full"
+
+
+def _fast_shading_compact_post(scene):
+    """compact_post for fast-shading bounces: the `tri_fast` row (shading
+    normal corners, face normal, material) read and interpolated on the
+    compact hits.  Misses carry mat -1; dead lanes get unit normals."""
+    n_tris = scene["tri_pos"].shape[0]
+
+    def post(hit, os, bs):
+        tid = torch.clamp(hit["tri"], 0, n_tris - 1).long()
+        row = take_rows(scene["tri_fast"], tid)
+        nrm = normalize(bary_packed(row[..., 0:9], hit["u"], hit["v"], 3))
+        ng = row[..., 9:12]
+        flip = torch.where(dot(nrm, -bs) < 0.0, -1.0, 1.0)
+        ns = nrm * flip
+        ng = ng * torch.where(dot(ng, ns) < 0.0, -1.0, 1.0)
+        out = {
+            "mat": torch.where(hit["tri"] >= 0, row[..., 12], -1.0),
+            "nsx": ns[..., 0], "nsy": ns[..., 1], "nsz": ns[..., 2],
+            "ngx": ng[..., 0], "ngy": ng[..., 1], "ngz": ng[..., 2],
+        }
+        return {k: x.detach() for k, x in out.items()}
+
+    return post, {"nsz": 1.0, "ngz": 1.0}
+
+
 def nee_bounce_step(scene, pre, alive_bounce, closest_fn, cfg):
-    """One vertex's shadow + bounce traces and next-vertex surface.
-    Returns (vis [N], found [N], hit_t [N], surf dict)."""
+    """One vertex's shadow + bounce traces and next-vertex surface, by
+    _compact_reconstruct_mode.  Returns (vis [N], found [N], hit_t [N],
+    surf dict)."""
     origin = pre["origin"].detach()
     l = pre["l"].detach()
     b = pre["new_d"].detach()
     key = ray_sort_key(origin, b, scene["aabb_min"], scene["aabb_max"]) if cfg.sort_rays else None
-    post, fills = _full_shading_compact_post(scene)
+    mode = _compact_reconstruct_mode(scene, cfg)
+    if mode is None:
+        occ, hit = sorted_shadow_closest(closest_fn.combo, origin, l, b, pre["shoot"], alive_bounce, key=key)
+        vis = torch.where(pre["shoot"] & ~occ, 1.0, 0.0)
+        # Fast shading at full width after the walk (JAX's _reconstruct).
+        surf = reconstruct_surface_fast(scene, hit["tri"], hit["u"], hit["v"], pre["origin"], pre["new_d"],
+                                        hit["t"])
+        return vis, hit["tri"] >= 0, hit["t"], surf
+    post, fills = (_fast_shading_compact_post if mode == "fast" else _full_shading_compact_post)(scene)
     occ, hit = sorted_shadow_closest(
         closest_fn.combo, origin, l, b, pre["shoot"], alive_bounce, key=key,
         compact_post=post, post_fills=fills,
@@ -130,6 +181,15 @@ def nee_bounce_step(scene, pre, alive_bounce, closest_fn, cfg):
     m = torch.clamp(hit["mat"], 0, scene["mat_base_color"].shape[0] - 1)
     ns = torch.stack([hit["nsx"], hit["nsy"], hit["nsz"]], dim=-1)
     ng = torch.stack([hit["ngx"], hit["ngy"], hit["ngz"]], dim=-1)
+    if mode == "fast":
+        tcl = torch.clamp(hit["t"], 0.0, 1e30)
+        surf = {
+            "position": pre["origin"] + tcl[..., None] * pre["new_d"],
+            "normal_g": ng,
+            "normal_s": ns,
+            **average_material(scene, m),
+        }
+        return vis, hit["found"], hit["t"], surf
     base = gather_rows(scene["mat_base_color"], m)
     rough = gather_rows(scene["mat_roughness"], m)
     metal = gather_rows(scene["mat_metallic"], m)
@@ -173,10 +233,6 @@ def _nee_direct(scene, surf, view, sun, alive, any_fn, rng_state, cfg):
 def path_trace(scene, gbuf, sun, closest_fn, any_fn, rng_state, cfg):
     """Indirect GI from the G-buffer surfaces: max_bounces - 1 bounce
     vertices and NEE at the last one.  Returns (radiance [N, 3], rng_state)."""
-    if cfg.fast_bounce_shading:
-        raise NotImplementedError(
-            "fast_bounce_shading is not ported yet (ROADMAP Queue 1, item 5: fast shading)"
-        )
     n_pix = gbuf["ray_d"].shape[0]
     surf = {k: gbuf[k] for k in SURF_KEYS}
     acc = torch.where(gbuf["hit"][..., None], surf["emissive"], 0.0)

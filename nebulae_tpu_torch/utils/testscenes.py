@@ -16,6 +16,8 @@ frame take the full-texture-shading path at every bounce.
                         80 MB byte gate, so "auto" routes it to paging.
   box_scene()           a closed box of 12 untextured triangles: a BVH
                         whose root is a leaf (the one-node tables, K8).
+  procedural_envmap()   the 64x128 lat-long sky of JAX's app, for
+                        enable_envmap.
 """
 
 from __future__ import annotations
@@ -290,6 +292,19 @@ def box_scene() -> FlatScene:
             color = [0.25 + 0.5 * side, 0.3 + 0.2 * axis, 0.8 - 0.5 * side]
             _append_flat_tris(fs, quad, normal, color)
     return fs
+
+
+def procedural_envmap(height: int = 64, width: int = 128) -> np.ndarray:
+    """A lat-long sky [H, W, 3] float32, blue overhead and warm at the
+    horizon and below: the procedural map of JAX's app (`--envmap
+    procedural`), 64x128 by default."""
+    th = np.linspace(0, np.pi, height, dtype=np.float32)[:, None]
+    up = np.clip(np.cos(th), 0, 1)
+    env = np.zeros((height, width, 3), np.float32)
+    env[..., 0] = 0.9 - 0.55 * up
+    env[..., 1] = 0.55 + 0.05 * up
+    env[..., 2] = 0.35 + 0.55 * up
+    return env
 
 
 def bench_camera(fs: FlatScene, fov_y_deg: float = 60.0) -> Camera:

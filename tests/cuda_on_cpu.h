@@ -2,9 +2,10 @@
 // The CUDA subset that nebulae_tpu_torch/csrc/trace.cu uses, on the CPU, for
 // tests/test_torch_emulated.py.  A launch runs its blocks one after another
 // and each GPU thread of a block as a std::thread; a warp collective is a
-// barrier per (warp, mask) that the mask's lanes meet at.  Device 0 has 2
-// SMs (group_rays() = 8,192: the group bodies) and device 1 none
-// (group_rays() = 0: one thread per ray); emu_use_group_body picks one.
+// barrier per (warp, mask) that the mask's lanes meet at.  Device 0 has 32
+// SMs (group_rays() = 131,072 and K8's node_group_rays() = 8,192: the group
+// bodies) and device 1 none (both 0: one thread per ray);
+// emu_use_group_body picks one.
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -45,7 +46,7 @@ inline int emu_device = 0;
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaGetDevice(int* d) { *d = emu_device; return cudaSuccess; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, int attr, int dev) {
-  *v = attr == cudaDevAttrMultiProcessorCount ? (dev == 0 ? 2 : 0) : 2048;
+  *v = attr == cudaDevAttrMultiProcessorCount ? (dev == 0 ? 32 : 0) : 2048;
   return cudaSuccess;
 }
 

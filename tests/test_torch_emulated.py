@@ -4,14 +4,19 @@ g++ builds trace.cu against tests/cuda_on_cpu.h, which runs each GPU
 thread of a block as a std::thread and meets warp collectives at a barrier
 per (warp, mask); each launch becomes a loop over its blocks.  Both bodies
 of K2 (shadow_closest_fat4), K3 (any_hit_fat4, and its slot-gated K6b
-build), K7b (shadow_closest_fat) and K7c (any_hit_fat), and the one body
-of K1 (closest_hit_fat4) and K7a (closest_hit_fat), are held to the plain
-walks at 1, 31, 33 and 4,097 rays: a partial warp, a warp and a lane, and
-a partial block of either body.  tri, t, u, v and occ must be equal: the kernels build with
+build), K7b (shadow_closest_fat), K7c (any_hit_fat) and K8's closest hit
+(closest_hit_node), and the one body of K1 (closest_hit_fat4), K7a
+(closest_hit_fat) and K8's any hit (any_hit_node), are held to the plain
+walks at 1, 31, 33 and 4,097 rays: a partial warp, a warp and a lane, and a
+partial block of either body.  tri, t, u, v and occ must be equal: the kernels build with
 --fmad=false, and g++ with -ffp-contract=off rounds as they do.  The rays
 leave surface points of a ~5k-triangle scene in directions drawn from a
-seed, with zero and short caps, dead origins and zero directions.  This is
-the check of the group bodies' lane logic that needs no card.
+seed, with zero and short caps, dead origins and zero directions.  K8
+walks two one-node tables: the single row of the 12-triangle box (a root
+leaf, as the one-node route and single-leaf subtree chunks give it), from
+origins in and around the box, and the whole tree of the ~5k-triangle
+scene (its inner rows and child order).  This is the check of the group
+bodies' lane logic that needs no card.
 """
 
 import ctypes
@@ -30,7 +35,7 @@ from nebulae_tpu_torch.kernels import trace as kt
 from nebulae_tpu_torch.kernels.build import CXX, SIGNATURES
 from nebulae_tpu_torch.passes.gbuffer import camera_rays, make_camera_arrays
 from nebulae_tpu_torch.tracer.sorting import DEAD_ORIGIN
-from nebulae_tpu_torch.utils.testscenes import bench_camera, textured_scene
+from nebulae_tpu_torch.utils.testscenes import bench_camera, box_scene, textured_scene
 
 TRACE_CU = Path(nebulae_tpu_torch.__file__).parent / "csrc" / "trace.cu"
 HEADER = Path(__file__).with_name("cuda_on_cpu.h")
@@ -100,7 +105,13 @@ def scene():
     o, d = camera_rays(cam, 96, 64)
     hit = kt.closest_hit_fat4_plain(o, d, fat4)
     points = (o + d * hit["t"][:, None])[hit["tri"] >= 0]
-    return fat4, fat2, chunks[len(chunks) // 2], points
+    box = box_scene()
+    leaf = kt.tables_to(kt.pack_bvh_nodes(build_bvh(box.tri_pos, max_leaf=15), box.tri_pos, 8), "cpu")
+    assert leaf["nodes"].shape[0] == 1
+    in_box = torch.from_numpy(np.random.default_rng(2).uniform(-0.5, 1.5, (2000, 3)).astype(np.float32))
+    nodes = {"root-leaf": (leaf, in_box),
+             "deep": (kt.tables_to(kt.pack_bvh_nodes(bvh, fs.tri_pos, 8), "cpu"), points)}
+    return fat4, fat2, chunks[len(chunks) // 2], points, nodes
 
 
 def _rays(points, n):
@@ -171,16 +182,26 @@ def _same(got, want):
 # Each walk with each of its bodies: K1 and K7a have one thread per ray only.
 CASES = [(k, b) for k in ("K2", "K3", "K3 slots", "K7b", "K7c") for b in ("group", "thread")]
 CASES += [("K1", "thread"), ("K7a", "thread")]
+CASES += [(f"K8 closest {tree}", b) for tree in ("root-leaf", "deep") for b in ("group", "thread")]
+CASES += [(f"K8 any {tree}", "thread") for tree in ("root-leaf", "deep")]
 
 
 @pytest.mark.parametrize("n", SIZES)
 @pytest.mark.parametrize("kernel, body", CASES)
 def test_emulated_walk_equals_plain(lib, scene, kernel, body, n):
-    fat4, fat2, chunk, points = scene
+    fat4, fat2, chunk, points, nodes = scene
+    if kernel.startswith("K8"):
+        tab, points = nodes[kernel.split()[2]]
     o, b, l_, cap_b, cap_l = _rays(points, n)
     lib.emu_use_group_body(body == "group")
     occ = hit = None
-    if kernel in ("K3", "K7c"):
+    if kernel.startswith("K8 closest"):
+        hit = kt.closest_hit_node_plain(o, b, tab, cap_b)
+        _same_hit(_closest(lib, "nb_closest_node", "nodes", o, b, tab, cap_b), hit)
+    elif kernel.startswith("K8 any"):
+        occ = kt.any_hit_node_plain(o, l_, tab, cap_l)
+        assert torch.equal(_any(lib, "nb_any_node", "nodes", o, l_, tab, cap_l), occ)
+    elif kernel in ("K3", "K7c"):
         tab, key, entry, plain = ((fat4, "fat4nodes", "nb_any_fat4", kt.any_hit_fat4_plain) if kernel == "K3"
                                   else (fat2, "fatnodes", "nb_any_fat", kt.any_hit_fat_plain))
         occ = plain(o, l_, tab, cap_l)

@@ -11,7 +11,8 @@ ragged edges, on the CPU.
   * The closest-hit walk (K1, K6a, K6b) and the any-hit walk (K3, K6a,
     K6b) read rows and triangles as K2 does, and their wrappers refuse the
     same tables before they dispatch; so do the three fat2 walks (K7a, K7b
-    and K7c), with the node faults on their fatnodes table.
+    and K7c), with the node faults on their fatnodes table, and the two
+    one-node walks (K8 closest and any hit), on their nodes table.
   * K4 and K5 refuse a step below 1.
   * K5's plain version on a ragged 13x11 image, where the taps of steps 4
     and 8 reach past every edge, against jax.vjp of the interpreted Pallas
@@ -30,6 +31,7 @@ CLOSEST = ("closest_hit_fat4", "closest_hit_fat4_paged", "closest_hit_fat4_slots
 ANY = ("any_hit_fat4", "any_hit_fat4_paged", "any_hit_fat4_slots")
 FAT2_FUSED = "shadow_closest_fat"
 FAT2 = ("closest_hit_fat", FAT2_FUSED, "any_hit_fat")
+NODE = ("closest_hit_node", "any_hit_node")
 
 
 def _soup(n_tris=400, seed=3):
@@ -49,11 +51,12 @@ def _rays(n, seed=7):
 
 
 def _tables(tri_group=8, wide=4):
+    """fat4 (wide 4), fat2 (wide 2) or one-node (wide 1) tables of _soup()."""
     from nebulae_tpu_torch.bvh.builder import build_bvh
-    from nebulae_tpu_torch.kernels.trace import pack_bvh_fat, pack_bvh_fat4, tables_to
+    from nebulae_tpu_torch.kernels.trace import pack_bvh_fat, pack_bvh_fat4, pack_bvh_nodes, tables_to
 
     tri = _soup()
-    pack = pack_bvh_fat4 if wide == 4 else pack_bvh_fat
+    pack = {4: pack_bvh_fat4, 2: pack_bvh_fat, 1: pack_bvh_nodes}[wide]
     return tables_to(pack(build_bvh(tri, max_leaf=15), tri, tri_group), "cpu")
 
 
@@ -98,8 +101,8 @@ BAD_TABLES = {
 def _refuses_bad_tables_before_dispatch(name, fault):
     from nebulae_tpu_torch.kernels import trace as kt
 
-    nodes = "fatnodes" if name in FAT2 else "fat4nodes"
-    tables = _tables(wide=2 if name in FAT2 else 4)
+    nodes = "fatnodes" if name in FAT2 else "nodes" if name in NODE else "fat4nodes"
+    tables = _tables(wide=2 if name in FAT2 else 1 if name in NODE else 4)
     o, b, l = _rays(64)
     _call(name, o, b, l, tables)  # the tables as packed are taken
     bad = BAD_TABLES[fault](tables, nodes)
@@ -136,6 +139,14 @@ def test_any_walk_refuses_bad_tables_before_dispatch(name, fault):
     for name in FAT2 for fault in BAD_TABLES])
 def test_fat2_fused_walk_refuses_bad_tables_before_dispatch(name, fault):
     """The fat2 walks: closest (K7a), fused (K7b) and any hit (K7c)."""
+    _refuses_bad_tables_before_dispatch(name, fault)
+
+
+@pytest.mark.parametrize("fault", list(BAD_TABLES))
+@pytest.mark.parametrize("name", NODE)
+def test_node_walk_refuses_bad_tables_before_dispatch(name, fault):
+    """The one-node walks (K8 closest and any hit) read a row as two
+    16-byte loads and a triangle as 8-byte loads."""
     _refuses_bad_tables_before_dispatch(name, fault)
 
 
