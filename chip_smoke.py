@@ -70,7 +70,20 @@ Phases (any failure raises and exits non-zero):
               K1 twice a frame), one profiled frame, 1 warm-up and 3 timed
               train steps, one profiled; and each option's 64x64 frame and
               step on the GPU against the CPU plain path
- 10. summary  one {"kernels": [...]} line, then the device line last
+ 10. nrc      the neural radiance cache: the bench scene at 1920x1080 with
+              enable_nrc, 3 warm-up and 3 timed frames (nrc_loss and
+              nrc_query_frac of each, launch counts: K1 2, K2 3 + 7, K3
+              1 + 1 a frame, peak memory), one profiled frame (device ms of
+              nrc_train, nrc_query and the MLP's products), K1, K2 and K3
+              held against their plain versions on each launch of an NRC
+              frame (max error 0); the MLP's two product forms on one
+              2,073,600-row query; 1 warm-up and 3 timed train steps with
+              the cache, one profiled; bench_atrium (the bench tori in
+              four walls) at 1080p, 1 warm-up and 3 timed frames and one
+              profiled; 64x64 NRC frames and a step on the GPU against the
+              CPU plain path from one cache; the quality probe on the card
+              at its defaults (ratio < 1)
+ 11. summary  one {"kernels": [...]} line, then the device line last
 Each phase logs its seconds; each profile lists every launch of a port
 kernel with its grid, block, registers and time.  Imports nothing of JAX or
 of the JAX package.
@@ -106,6 +119,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -118,6 +132,7 @@ WIDTH, HEIGHT, SPP, BOUNCES = 1920, 1080, 1, 4
 N_RANDOM = 1 << 21
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 # f32 operations per unit of traversal work (counted from csrc/trace.cu):
 # a slab test of one box, a Moller-Trumbore test of one triangle, and the
 # per-ray setup; and per a-trous tap, plus the per-pixel a-trous setup.
@@ -164,6 +179,12 @@ def once_ms(fn) -> float:
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 PHASES = ("nebulae/gbuffer", "nebulae/pathtrace", "nebulae/svgf", "nebulae/tonemap")
 TRAIN_PHASES = PHASES + ("nebulae/backward", "nebulae/optimizer")
+# With the radiance cache the frame trains it, then its query pass takes
+# the path tracer's place; the MLP runs under "nebulae/nrc_mlp" inside both.
+NRC_PHASES = ("nebulae/gbuffer", "nebulae/nrc_train", "nebulae/nrc_query", "nebulae/svgf", "nebulae/tonemap")
+NRC_TRAIN_PHASES = NRC_PHASES + ("nebulae/backward", "nebulae/optimizer")
+# Matrix-product kernels as the profiler names them (cuBLAS, CUTLASS).
+GEMM_NAMES = re.compile(r"gemm|nvjet|cutlass|xmma|sm90_|sm80_", re.IGNORECASE)
 
 
 def _union_ms(spans) -> float:
@@ -186,12 +207,16 @@ def _trace_events(prof) -> list:
         return json.loads(path.read_text())["traceEvents"]
 
 
-def profile_frame(render, kernel_names, frame_ms: float, phases=PHASES, what: str = "frame") -> None:
+def profile_frame(render, kernel_names, frame_ms: float, phases=PHASES, what: str = "frame",
+                  nested=()) -> dict:
     """One frame (or train step) under torch.profiler, read from its Chrome
     trace: device busy time (union of kernel, copy and set spans), the idle
     share of the unprofiled mean time, device time per phase (each kernel
     goes to the record_function range that launched it), the port kernels'
-    share, and the costliest kernels."""
+    share, and the costliest kernels.  For each range named in `nested`
+    (one that runs inside the phases), the device time of the kernels
+    launched inside it, of those the matrix products', and its costliest
+    kernels.  Returns the device ms by phase and by nested range."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -216,8 +241,18 @@ def profile_frame(render, kernel_names, frame_ms: float, phases=PHASES, what: st
                  if (e.get("cat") or "").startswith("cuda_") and "correlation" in e.get("args", {})}
     phase_ms = dict.fromkeys(tuple(phases) + ("other",), 0.0)
     by_name: dict[str, list[float]] = {}
+    inner = {n: [(s, t) for m, s, t in ((e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+                                        if e.get("cat") == "user_annotation" and "dur" in e) if m == n]
+             for n in nested}
+    nested_ms = {n: {"ms": 0.0, "products_ms": 0.0, "kernels": {}} for n in nested}
     for e in dev:
         ts = launch_ts.get(e.get("args", {}).get("correlation"))
+        for n, spans_n in inner.items():
+            if ts is not None and any(s <= ts <= t for s, t in spans_n):
+                acc_n = nested_ms[n]
+                acc_n["ms"] += e["dur"] / 1e3
+                acc_n["products_ms"] += e["dur"] / 1e3 if GEMM_NAMES.search(e["name"]) else 0.0
+                acc_n["kernels"][e["name"]] = acc_n["kernels"].get(e["name"], 0.0) + e["dur"] / 1e3
         # By the host range around its launch; failing a traced launch, by
         # the device-side copy of the range around the op itself.
         phase = next((n for n, s, t in ranges if ts is not None and s <= ts <= t), None) or next(
@@ -253,6 +288,12 @@ def profile_frame(render, kernel_names, frame_ms: float, phases=PHASES, what: st
             f"{e['dur'] / 1e3:.4f} ms")
     for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"profile:   {ms:8.3f} ms  x{count:<4d} {name[:110]}")
+    for n, acc_n in nested_ms.items():
+        top = sorted(acc_n["kernels"].items(), key=lambda kv: -kv[1])[:6]
+        log(f"profile: inside {n}: device {acc_n['ms']:.3f} ms, of it matrix products {acc_n['products_ms']:.3f} ms; "
+            + "; ".join(f"{ms:.3f} ms {k[:70]}" for k, ms in top))
+    return {"phases": phase_ms, "nested": {n: {k: v for k, v in a.items() if k != "kernels"}
+                                           for n, a in nested_ms.items()}}
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -314,7 +355,7 @@ def walked_bytes(tables, work) -> int:
 
 def trace_bound(n_rays, tables, work, ray_bytes, out_bytes, n_dirs=1):
     n_bytes = n_rays * (ray_bytes + out_bytes) + walked_bytes(tables, work)
-    n_ops = (OPS_BOX * work["box_tests"] + OPS_TRI * work["tri_tests"]
+    n_ops = (OPS_BOX * work.get("box_tests", 0) + OPS_TRI * work.get("tri_tests", 0)
              + OPS_RAY * n_dirs * n_rays)
     return bound_ms(n_bytes, n_ops)
 
@@ -597,7 +638,8 @@ FAT2_KERNELS = ("closest_fat_kernel", "combo_fat_", "any_fat_", "atrous_fwd_kern
 NODE_KERNELS = ("closest_node", "any_node")  # both bodies of each K8 walk
 
 
-def train_phase(renderer, cam, cfg, wrappers, kernel_names=FAT4_KERNELS, what="train") -> dict:
+def train_phase(renderer, cam, cfg, wrappers, kernel_names=FAT4_KERNELS, what="train", phases=TRAIN_PHASES,
+                nested=()) -> dict:
     """bench.py:107-123 on the port: params held fixed across the timed
     steps, the frame state threaded from step to step.  Returns the launch
     counts of the 4 steps (1 warm-up, 3 timed); logs under `what`."""
@@ -647,7 +689,7 @@ def train_phase(renderer, cam, cfg, wrappers, kernel_names=FAT4_KERNELS, what="t
     log(f"{what}: gradient norms " + json.dumps(
         {k: float(torch.linalg.vector_norm(g)) for k, g in grads.items()}))
     profile_frame(lambda: step(params, opt_state, cam, state, target), kernel_names + ("atrous_bwd_kernel",),
-                  step_s * 1e3, phases=TRAIN_PHASES, what=f"{what} step")
+                  step_s * 1e3, phases=phases, what=f"{what} step", nested=nested)
     return launches
 
 
@@ -674,11 +716,12 @@ def small_frame_check(fs, options=None, env_map=None, what="small frame") -> Non
         f"{float((out_g['ldr'].cpu() - out_c['ldr']).abs().mean()):.3g})")
 
 
-def small_train_check(fs, options=None, env_map=None, what="small train step") -> None:
+def small_train_check(fs, options=None, env_map=None, what="small train step", camera=None) -> None:
     """A 64x64 train step on the GPU (kernels) against the CPU (plain
     versions): loss to a relative 1e-3, each gradient to a cosine >= 0.999
     (a gradient that is zero on the CPU must be zero on the GPU: the sky
-    colour under enable_envmap)."""
+    colour under enable_envmap).  With enable_nrc both start from the
+    same cache (init_cache draws it on the CPU)."""
     import torch
 
     from nebulae_tpu_torch.config import RenderConfig
@@ -696,7 +739,7 @@ def small_train_check(fs, options=None, env_map=None, what="small train step") -
         params["sun"] = r.sun
         opt = _recording_adam()
         step, _ = make_train_step(cfg, frozen, r.tables, optimizer=opt, device=device)
-        cam = make_camera_arrays(bench_camera(fs), 64, 64, device)
+        cam = make_camera_arrays(camera or bench_camera(fs), 64, 64, device)
         target = torch.zeros((64, 64, 3), dtype=torch.float32, device=device)
         _p, _o, _s, loss, _img = step(params, opt.init(params), cam, init_frame_state(cfg, device), target)
         res[device] = (float(loss), {k: g.double().cpu() for k, g in _grad_report(opt).items()})
@@ -1461,6 +1504,238 @@ def options_phase(base_cfg, fs, bvh) -> dict:
     return counts
 
 
+def nrc_frames(r, cam_obj, wrappers, n_warm, n_timed, what, may_idle=("any_fat4",)):
+    """n_warm + n_timed frames of an NRC renderer with the launch counts set
+    to 0 just before and read just after; logs each frame's nrc_loss and
+    nrc_query_frac and peak memory.  Returns (mean ms of the timed frames,
+    the counts).  Every kernel but those of
+    `may_idle` must launch: K3 runs at each pass's last vertex, where the
+    spread heuristic and the sky leave few paths alive, and a walk with no
+    live ray launches nothing."""
+    import torch
+
+    _zero(wrappers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, scalars = [], []
+    for i in range(n_warm + n_timed):
+        t0 = time.perf_counter()
+        out = r.render(cam_obj)
+        torch.cuda.synchronize()
+        if i >= n_warm:
+            times.append((time.perf_counter() - t0) * 1e3)
+        scalars.append((float(out["nrc_loss"]), float(out["nrc_query_frac"])))
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ldr = out["ldr"]
+    assert ldr.shape == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(ldr).all()), f"{what}: non-finite frame"
+    assert float(ldr.std()) > 1e-3, f"{what}: constant frame"
+    for loss, qf in scalars:
+        assert math.isfinite(loss) and loss > 0.0 and 0.0 < qf < 1.0, f"{what}: nrc_loss {loss}, query_frac {qf}"
+    missing = [name for name, c in launches.items() if c == 0 and name not in may_idle]
+    assert not missing, f"{what}: kernels not launched: {missing}"
+    mean_ms = sum(times) / len(times)
+    log(f"{what}: {mean_ms:.2f} ms/frame (timed frames {[round(t, 2) for t in times]}), peak device memory "
+        f"{peak:.2f} GiB, launches per frame {json.dumps({k: c / (n_warm + n_timed) for k, c in launches.items()})}")
+    log(f"{what}: per frame (nrc_loss, nrc_query_frac) {json.dumps([[round(a, 6), round(b, 6)] for a, b in scalars])}")
+    return mean_ms, launches
+
+
+def _state_to(x, device):
+    """A frame state (nested dicts and lists of tensors and Python values)
+    with every tensor on `device`."""
+    import torch
+
+    if isinstance(x, dict):
+        return {k: _state_to(v, device) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_state_to(v, device) for v in x]
+    return x.to(device) if isinstance(x, torch.Tensor) else x
+
+
+def small_nrc_check(fs, cam_obj, what="nrc small frames") -> None:
+    """Two 64x64 NRC frames on the GPU (kernels, bf16 tensor-core
+    products) against the CPU (plain versions, exact products), each from
+    one frame state (cache and SVGF history) copied to both devices: ldr on
+    >= 99% of pixels within rtol 1e-2 / atol 1e-3, nrc_loss to a relative
+    1e-3, nrc_query_frac within 0.5% (tests/test_torch_nrc_frame.py's
+    tolerances against JAX).  Left to run on, the devices' caches part:
+    a handful of training paths differ by an ulp-level hit or shading
+    difference, and Adam's first steps move a weight by about lr * sign(g).
+    Then one cache step on both devices from one set of records: loss to
+    a relative 1e-5, params to a relative L2 error <= 1e-3
+    (tests/test_torch_nrc.py's tolerances for one step against JAX)."""
+    import torch
+
+    from nebulae_tpu_torch.config import RenderConfig
+    from nebulae_tpu_torch.engine.renderer import Renderer
+    from nebulae_tpu_torch.nrc.cache import init_cache, make_optimizer, train_cache_step
+    from nebulae_tpu_torch.nrc.mlp import mlp_leaves
+
+    cfg = RenderConfig(width=64, height=64, max_bounces=BOUNCES, enable_svgf=True, enable_tonemap=True,
+                       enable_nrc=True)
+    r_gpu, r_cpu = Renderer(fs, cfg, device="cuda"), Renderer(fs, cfg, device="cpu")
+    for i in range(2):
+        r_gpu.state = _state_to(r_cpu.state, "cuda")
+        g = {k: v.cpu() for k, v in r_gpu.render(cam_obj).items()}
+        c = r_cpu.render(cam_obj)
+        close = torch.isclose(g["ldr"], c["ldr"], rtol=1e-2, atol=1e-3).all(dim=-1).float().mean()
+        assert float(close) >= 0.99, f"{what} {i}: only {float(close):.4f} of pixels agree"
+        lg, lc = float(g["nrc_loss"]), float(c["nrc_loss"])
+        assert abs(lg - lc) <= 1e-3 * abs(lc), f"{what} {i}: nrc_loss {lg} vs CPU {lc}"
+        qg, qc = float(g["nrc_query_frac"]), float(c["nrc_query_frac"])
+        assert abs(qg - qc) <= 0.005, f"{what} {i}: query_frac {qg} vs CPU {qc}"
+        log(f"{what} {i}: GPU agrees with the CPU plain path: {float(close):.6f} of pixels within rtol 1e-2 / "
+            f"atol 1e-3, nrc_loss {lg:.6f} vs {lc:.6f}, query_frac {qg:.6f} vs {qc:.6f}")
+
+    gen = torch.Generator().manual_seed(7)
+    n = 16384
+    unit = torch.nn.functional.normalize(torch.randn((2, n, 3), generator=gen), dim=-1)
+    rec = {"position": torch.rand((n, 3), generator=gen) * 4.0 - 2.0, "normal": unit[0], "view": unit[1],
+           "roughness": torch.rand(n, generator=gen), "albedo": torch.rand((n, 3), generator=gen),
+           "metalness": torch.rand(n, generator=gen), "target": torch.rand((n, 3), generator=gen) ** 2 * 9.0,
+           "weight": (torch.rand(n, generator=gen) > 0.2).float()}
+    lo, hi = torch.full((3,), -2.0), torch.full((3,), 2.0)
+    res = {}
+    for device in ("cuda", "cpu"):
+        state, loss = train_cache_step(_state_to(init_cache(seed=0), device), make_optimizer(1e-2),
+                                       _state_to(rec, device), _state_to(lo, device), _state_to(hi, device))
+        res[device] = (float(loss), torch.cat([t.cpu().reshape(-1) for t in mlp_leaves(state["params"])]).double())
+    (lg, pg), (lc, pc) = res["cuda"], res["cpu"]
+    rel = float(torch.linalg.vector_norm(pg - pc) / torch.linalg.vector_norm(pc))
+    assert abs(lg - lc) <= 1e-5 * abs(lc) and rel <= 1e-3, f"nrc cache step: loss {lg} vs {lc}, params rel {rel}"
+    log(f"nrc cache step on one set of records: GPU loss {lg:.7f} vs CPU {lc:.7f}, params relative L2 {rel:.3g}")
+
+
+def mlp_forms(r, cam_obj) -> None:
+    """The cache MLP on one full-width query (a 1080p G-buffer's primary
+    hits encoded, 2,073,600 rows): the forward with aten::mm.dtype (bf16
+    operands on the tensor cores, float32 out) against the upcast form
+    (float32 products of the upcast operands), their largest difference,
+    and the forward and input backward as the train step's query runs them,
+    beside the bound."""
+    import torch
+
+    from nebulae_tpu_torch.core import brdf
+    from nebulae_tpu_torch.nrc.encoding import encode_query
+    from nebulae_tpu_torch.nrc.mlp import MM_OUT_DTYPE, apply_mlp, forward_layers, mlp_leaves
+    from nebulae_tpu_torch.passes.gbuffer import camera_rays, make_camera_arrays, render_gbuffer
+    from nebulae_tpu_torch.tracer.trace import make_tracer
+
+    closest, _ = make_tracer(r.scene, r.tables, r.cfg, device=r.device)
+    o, d = camera_rays(make_camera_arrays(cam_obj, WIDTH, HEIGHT, r.device), WIDTH, HEIGHT)
+    g = render_gbuffer(r.scene, closest, o, d)
+    x = encode_query(g["position"], g["normal_s"], g["view"], g["roughness"], g["albedo"],
+                     brdf.base_f0(g["albedo"], g["metalness"]), r.scene["aabb_min"], r.scene["aabb_max"])
+    params = r.state["nrc"]["ema_params"]
+    leaves = mlp_leaves(params)
+    z_dtype = forward_layers(x, leaves)[0]
+    z_up = forward_layers(x, leaves, upcast=True)[0]
+    diff = float((z_dtype - z_up).abs().max())
+    ms_dtype = timed_ms(lambda: forward_layers(x, leaves))
+    ms_up = timed_ms(lambda: forward_layers(x, leaves, upcast=True))
+    xg = x.detach().requires_grad_(True)
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            torch.autograd.grad(apply_mlp(params, xg).sum(), xg)
+
+    ms_fb = timed_ms(fwd_bwd)
+    n = x.shape[0]
+    macs = sum(layer["w"].shape[0] * layer["w"].shape[1] for layer in params)
+    bound, by = max((n * (x.shape[1] + 3) * 4 / HBM_BYTES_PER_S * 1e3, "bytes"),
+                    (2 * n * macs / BF16_OPS_PER_S * 1e3, "operations"))
+    log(f"mlp: torch {torch.__version__}, aten::mm.dtype {'present' if MM_OUT_DTYPE else 'absent'}; "
+        f"{n} rows x {x.shape[1]} -> 3: forward {ms_dtype:.3f} ms with aten::mm.dtype, {ms_up:.3f} ms upcast "
+        f"(max |dz| {diff:.3g}); forward + input backward {ms_fb:.3f} ms; bound {bound:.4f} ms ({by})")
+
+
+def nrc_phase(base_cfg, fs, bvh) -> None:
+    """Phase 10: the neural radiance cache.  The bench scene at 1920x1080
+    with enable_nrc: 3 warm-up and 3 timed frames (each frame's nrc_loss
+    and nrc_query_frac, the launch counts, peak memory), one profiled frame
+    (device ms of nrc_train, nrc_query and the MLP's products), and K1, K2
+    and K3 held against their plain versions on each of their launches in
+    one NRC frame.  bench_atrium (the bench tori inside four walls): 1
+    warm-up and 3 timed frames and one profiled.  The train step with the
+    cache: 1 warm-up and 3 timed steps, one profiled.  64x64 frames and a
+    step on the GPU against the CPU plain path, the quality probe on the
+    card at its defaults (ratio < 1), and the MLP's two product forms."""
+    import dataclasses
+
+    from nebulae_tpu_torch.engine.renderer import Renderer
+    from nebulae_tpu_torch.kernels import svgf as ksvgf
+    from nebulae_tpu_torch.kernels import trace as kt
+    from nebulae_tpu_torch.nrc.cache import memory_footprint
+    from nebulae_tpu_torch.passes.gbuffer import make_camera_arrays
+    from nebulae_tpu_torch.utils.nrc_quality import nrc_quality_probe
+    from nebulae_tpu_torch.utils.testscenes import atrium_camera, bench_atrium, bench_camera, small_atrium
+
+    cfg = dataclasses.replace(base_cfg, enable_nrc=True)
+    wrappers = {"closest_fat4": kt.closest_hit_fat4, "shadow_closest_fat4": kt.shadow_closest_fat4,
+                "any_fat4": kt.any_hit_fat4, "atrous_fwd": ksvgf.atrous_step}
+    r = Renderer(fs, cfg, bvh=bvh)
+    log(f"nrc: cache bytes {json.dumps(memory_footprint(r.state['nrc']))}")
+    cam_obj = bench_camera(fs)
+    mean_ms, n = nrc_frames(r, cam_obj, wrappers, 3, 3, "nrc frames")
+    # A frame: K1 for the primary and the training G-buffers; K2 at each
+    # query and training bounce vertex, K3 at each pass's last vertex (a
+    # walk with no live ray launches nothing, so at most these); K4 x4.
+    per_frame = {k: c / 6 for k, c in n.items()}
+    most = {"closest_fat4": 2, "shadow_closest_fat4": (BOUNCES - 1) + (cfg.nrc_max_path_vertices - 1),
+            "any_fat4": 2, "atrous_fwd": cfg.svgf_atrous_passes}
+    ok = (per_frame["closest_fat4"] == 2 and per_frame["atrous_fwd"] == most["atrous_fwd"]
+          and BOUNCES <= per_frame["shadow_closest_fat4"] <= most["shadow_closest_fat4"]
+          and per_frame["any_fat4"] <= most["any_fat4"])
+    assert ok, f"nrc frames: launches per frame {per_frame}, at most {most}"
+    profile_frame(lambda: r.render(cam_obj), FAT4_KERNELS, mean_ms, phases=NRC_PHASES, what="nrc frame",
+                  nested=("nebulae/nrc_mlp",))
+    # K1, K2 and K3 on each of their launches in one NRC frame.
+    k1s, k2s, k3s = recorded_launches(lambda: r.render(cam_obj), kt.closest_hit_fat4, kt.shadow_closest_fat4,
+                                      kt.any_hit_fat4)
+    tables = r.tables
+    for tag, launches_, hold, n_caps, kernel, plain in (
+            ("K1", k1s, hold_closest, 1, lambda a, b, t: kt.closest_hit_fat4(a, b, tables, t),
+             lambda a, b, t, w: kt.closest_hit_fat4_plain(a, b, tables, t, work=w)),
+            ("K2", k2s, hold_combo, 2, lambda a, b, l_, tb, tl: kt.shadow_closest_fat4(a, b, l_, tables, tb, tl),
+             lambda a, b, l_, tb, tl, w: kt.shadow_closest_fat4_plain(a, b, l_, tables, tb, tl, work=w)),
+            ("K3", k3s, hold_any, 1, lambda a, b, t: kt.any_hit_fat4(a, b, tables, t),
+             lambda a, b, t, w: kt.any_hit_fat4_plain(a, b, tables, t, work=w))):
+        h = Held()
+        for i, args in enumerate(launches_):
+            ms = h.ms
+            hold(h, f"{tag} nrc frame launch {i}", kernel, plain, *args[:-n_caps], tables, *args[-n_caps:])
+            log(f"{tag} nrc frame launch {i}: {args[0].shape[0]} rays, kernel {h.ms - ms:.4f} ms")
+        assert h.err == 0.0, f"{tag} on an NRC frame: max error {h.err}"
+        log(f"{tag} on an NRC frame's {len(launches_)} launches: max err {h.err:.3g}, kernel {h.ms:.3f} ms, "
+            f"plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms ({h.by})")
+    del k1s, k2s, k3s
+    mlp_forms(r, cam_obj)
+    cam = make_camera_arrays(cam_obj, WIDTH, HEIGHT, r.device)
+    train_phase(r, cam, cfg, wrappers, what="nrc train", phases=NRC_TRAIN_PHASES, nested=("nebulae/nrc_mlp",))
+    del r
+
+    fa = bench_atrium(0)
+    ra = Renderer(fa, cfg)
+    cam_a = atrium_camera(fa)
+    log(f"nrc atrium: {fa.num_triangles} triangles")
+    mean_a, n_a = nrc_frames(ra, cam_a, wrappers, 1, 3, "nrc atrium frames")
+    k3 = n["any_fat4"] + n_a["any_fat4"]
+    assert k3 > 0, "K3 launched on no NRC frame of the field or the atrium"
+    log(f"nrc: K3 launched {n['any_fat4']} times in 6 field frames, {n_a['any_fat4']} in 4 atrium frames")
+    profile_frame(lambda: ra.render(cam_a), FAT4_KERNELS, mean_a, phases=NRC_PHASES, what="nrc atrium frame",
+                  nested=("nebulae/nrc_mlp",))
+    del ra
+
+    small = small_atrium(0)
+    small_nrc_check(small, atrium_camera(small))
+    small_train_check(small, {"enable_nrc": True}, what="nrc small train step", camera=atrium_camera(small))
+    t0 = time.perf_counter()
+    probe = nrc_quality_probe()
+    log(f"nrc probe: {json.dumps(probe)} in {time.perf_counter() - t0:.1f} s")
+    assert probe["ratio"] < 1.0, f"nrc probe: the cache does not help at the defaults: {probe}"
+
+
 def bench_renderer(width=WIDTH, height=HEIGHT, bvh=None):
     """The ~139k-triangle bench scene's BVH (the C++ builder, unless one is
     given) and a Renderer of the main path's configuration -> (fs, bvh,
@@ -2212,7 +2487,11 @@ def main() -> int:
     options_phase(cfg, fs, bvh)
     clock.done("options")
 
-    # 10. summary
+    # 10. nrc: the neural radiance cache in the frame and the train step
+    nrc_phase(cfg, fs, bvh)
+    clock.done("nrc")
+
+    # 11. summary
     sources = {
         "closest_fat4": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1202"),
         "shadow_closest_fat4": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1415"),

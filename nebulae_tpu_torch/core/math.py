@@ -95,6 +95,19 @@ def build_orthonormal_basis(n):
     return t, bt
 
 
+def oct_encode(n):
+    """Unit vectors [..., 3] -> octahedral coordinates in [-1, 1]^2.  Zero
+    vectors map to (0, 0), not NaN: dead lanes feed zero normals through
+    here."""
+    denom = n[..., 0].abs() + n[..., 1].abs() + n[..., 2].abs()
+    p = n[..., :2] / maximum(denom[..., None], 1e-12)
+    px, py = p[..., 0], p[..., 1]
+    wrap_x = (1.0 - py.abs()) * torch.where(px >= 0.0, 1.0, -1.0)
+    wrap_y = (1.0 - px.abs()) * torch.where(py >= 0.0, 1.0, -1.0)
+    down = n[..., 2] < 0.0
+    return torch.stack([torch.where(down, wrap_x, px), torch.where(down, wrap_y, py)], dim=-1)
+
+
 def luminance(rgb):
     """Rec.709 luma."""
     return rgb[..., 0] * 0.2126 + rgb[..., 1] * 0.7152 + rgb[..., 2] * 0.0722

@@ -9,8 +9,9 @@ Python values.  `pack_scene_tables` routes a scene to its traversal tables
 branch for branch as the JAX Renderer does (one fat4 or fat2 table, paged,
 tri-chunked, subtree-chunked or one-node).
 The frame's phases run under `record_function` ranges named
-"nebulae/<phase>" (gbuffer, pathtrace, svgf, tonemap), so a profiler trace
-can attribute device time to them.
+"nebulae/<phase>" (gbuffer, pathtrace, svgf, tonemap; with the neural
+radiance cache nrc_train, then nrc_query in place of pathtrace), so a
+profiler trace can attribute device time to them.
 """
 
 from __future__ import annotations
@@ -35,8 +36,10 @@ from nebulae_tpu_torch.kernels import chunks as kc
 from nebulae_tpu_torch.kernels.trace import (
     empty_tables, grouped_tri_ids, pack_bvh_fat, pack_bvh_fat4, pack_bvh_nodes, tables_to,
 )
+from nebulae_tpu_torch.nrc.cache import init_cache, make_optimizer, query_cache
 from nebulae_tpu_torch.passes.direct import shade_direct
 from nebulae_tpu_torch.passes.gbuffer import camera_rays, make_camera_arrays, render_gbuffer
+from nebulae_tpu_torch.passes.nrc_pathtrace import path_trace_nrc_query, path_trace_nrc_train
 from nebulae_tpu_torch.passes.pathtrace import path_trace
 from nebulae_tpu_torch.passes.svgf import init_history, reproject_history, svgf_denoise
 from nebulae_tpu_torch.passes.tonemap import aces_tonemap
@@ -45,9 +48,6 @@ from nebulae_tpu_torch.tracer.trace import make_tracer
 
 def check_supported(cfg: RenderConfig) -> None:
     """Raise NotImplementedError for configurations this port does not cover."""
-    if cfg.enable_nrc:
-        raise NotImplementedError(
-            "enable_nrc=True is not ported yet (ROADMAP Queue 1, item 9: neural radiance cache)")
     if cfg.tracer == "bvh":
         raise NotImplementedError('tracer="bvh" is not ported (ROADMAP Queue 1, item 3)')
 
@@ -100,24 +100,37 @@ def pack_scene_tables(bvh, tri_pos: np.ndarray, cfg: RenderConfig) -> tuple[str,
 
 
 def init_frame_state(cfg: RenderConfig, device) -> dict:
-    """SVGF history, frame counter and history-reset flag."""
+    """SVGF history, frame counter and history-reset flag, and with
+    cfg.enable_nrc the cache state (init_cache(seed=0))."""
     check_supported(cfg)
-    return {
+    state = {
         "svgf": init_history(cfg.height, cfg.width, device),
         "frame": 0,
         "reset_history": True,
     }
+    if cfg.enable_nrc:
+        state["nrc"] = init_cache(seed=0, device=device)
+    return state
+
+
+def nrc_train_frame(scene, sun, closest_fn, any_fn, cache_state, cam, frame: int, cfg: RenderConfig):
+    """The cache's training for one frame: the reduced-resolution training
+    pass and its optimizer steps.  Returns (new cache state, loss)."""
+    return path_trace_nrc_train(scene, sun, closest_fn, any_fn, cfg, cache_state,
+                                make_optimizer(cfg.nrc_learning_rate), cam, frame)
 
 
 def trace_samples(scene: dict, gbuf: dict, sun: SunLight, cam: dict, closest_fn, any_fn, rng_state,
-                  cfg: RenderConfig):
+                  cfg: RenderConfig, cache_params=None, nrc_aux: dict | None = None):
     """The frame's cfg.spp samples from the G-buffer `gbuf`: path traced
     (or direct-lit without GI) and averaged.  Returns (radiance [N, 3],
     rng_state).  With cfg.jitter_primary each sample first draws its
     sub-pixel offset (2 draws, before the path's draws: the draw-order
     contract of core.brdf), traces its own jittered G-buffer (one more
     primary closest-hit walk) and shows the sky along its own missed rays;
-    `gbuf` then only guides SVGF and the outputs."""
+    `gbuf` then only guides SVGF and the outputs.  With GI and
+    `cache_params` each sample is the NRC query pass, and the last
+    sample's counters go into `nrc_aux`."""
     w, h = cfg.width, cfg.height
     acc = torch.zeros((w * h, 3), dtype=torch.float32, device=gbuf["ray_d"].device)
     for _ in range(cfg.spp):
@@ -128,7 +141,12 @@ def trace_samples(scene: dict, gbuf: dict, sun: SunLight, cam: dict, closest_fn,
             o_j, d_j = camera_rays(cam, w, h, jitter=torch.stack([jx, jy], -1))
             sample_gbuf = render_gbuffer(scene, closest_fn, o_j, d_j,
                                          image_hw=(h, w) if cfg.texture_mips else None)
-        if cfg.enable_gi:
+        if cfg.enable_gi and cache_params is not None:
+            sample, rng_state, aux = path_trace_nrc_query(scene, sample_gbuf, sun, closest_fn, any_fn, rng_state,
+                                                          cfg, cache_params)
+            if nrc_aux is not None:
+                nrc_aux.update(aux)
+        elif cfg.enable_gi:
             sample, rng_state = path_trace(scene, sample_gbuf, sun, closest_fn, any_fn, rng_state, cfg)
         else:
             sample, rng_state = shade_direct(scene, sample_gbuf, sun, any_fn, rng_state)
@@ -144,11 +162,14 @@ def render_frame(scene: dict, tables: dict | None, sun: SunLight, cam: dict, sta
     """One frame.  `scene` (to_tensors of device_arrays), `tables` (a
     route's traversal tables, or None), `sun` and `cam` live on `device`
     (CUDA unless "cpu" is asked for).  Returns (outputs, new_state):
-    outputs hold 'ldr' and, unless cfg.lean_outputs, 'hdr', 'denoised'
-    and the G-buffer.  Called under grad with material tables or sun
-    leaves that require it, the outputs carry their gradients (hits and
-    textures are detached, as in JAX); `Renderer.render` calls it under
-    no_grad."""
+    outputs hold 'ldr', 'nrc_loss' and 'nrc_query_frac' and, unless
+    cfg.lean_outputs, 'hdr', 'denoised', the G-buffer and under
+    cfg.nrc_debug the cache's debug view.  Called under grad with material
+    tables or sun leaves that require it, the outputs carry their
+    gradients (hits and textures are detached, as in JAX); `Renderer.render`
+    calls it under no_grad.  With GI and cfg.enable_nrc the cache trains
+    first (once a frame, without gradient), then the query pass reads the
+    new state's EMA parameters, detached."""
     dev = resolve_device(device)
     check_supported(cfg)
     w, h = cfg.width, cfg.height
@@ -158,12 +179,23 @@ def render_frame(scene: dict, tables: dict | None, sun: SunLight, cam: dict, sta
         o, d = camera_rays(cam, w, h)
         gbuf = render_gbuffer(scene, closest_fn, o, d, image_hw=(h, w) if cfg.texture_mips else None)
 
-    with record_function("nebulae/pathtrace"):
+    new_state = dict(state)
+    nrc = cfg.enable_gi and cfg.enable_nrc
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    nrc_loss, cache_params, nrc_aux = zero, None, {}
+    if nrc:
+        with record_function("nebulae/nrc_train"):
+            new_state["nrc"], nrc_loss = nrc_train_frame(scene, sun, closest_fn, any_fn, state["nrc"], cam,
+                                                         state["frame"], cfg)
+        cache_params = [{k: t.detach() for k, t in layer.items()} for layer in new_state["nrc"]["ema_params"]]
+
+    with record_function("nebulae/nrc_query" if nrc else "nebulae/pathtrace"):
         ys, xs = torch.meshgrid(
             torch.arange(h, device=dev), torch.arange(w, device=dev), indexing="ij"
         )
         rng_state = nrng.init_rng(xs.reshape(-1), ys.reshape(-1), w, state["frame"])
-        radiance, _rng_state = trace_samples(scene, gbuf, sun, cam, closest_fn, any_fn, rng_state, cfg)
+        radiance, _rng_state = trace_samples(scene, gbuf, sun, cam, closest_fn, any_fn, rng_state, cfg,
+                                             cache_params, nrc_aux)
         if not cfg.jitter_primary:
             # Primary misses show the sky (with jitter each sample composited
             # the sky along its own ray).
@@ -175,7 +207,6 @@ def render_frame(scene: dict, tables: dict | None, sun: SunLight, cam: dict, sta
     normal = gbuf["normal_s"].reshape(h, w, 3)
     hit = gbuf["hit"].reshape(h, w)
 
-    new_state = dict(state)
     if cfg.enable_svgf:
         with record_function("nebulae/svgf"):
             hist = state["svgf"]
@@ -210,9 +241,9 @@ def render_frame(scene: dict, tables: dict | None, sun: SunLight, cam: dict, sta
 
     with record_function("nebulae/tonemap"):
         ldr = aces_tonemap(denoised) if cfg.enable_tonemap else denoised
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    query_frac = nrc_aux["query_frac"] if nrc else zero
     if cfg.lean_outputs:
-        return {"ldr": ldr, "nrc_loss": zero, "nrc_query_frac": zero}, new_state
+        return {"ldr": ldr, "nrc_loss": nrc_loss, "nrc_query_frac": query_frac}, new_state
     outputs = {
         "hdr": img,
         "denoised": denoised,
@@ -221,9 +252,23 @@ def render_frame(scene: dict, tables: dict | None, sun: SunLight, cam: dict, sta
         "normal": normal,
         "albedo": gbuf["albedo"].reshape(h, w, 3),
         "hit": hit,
-        "nrc_loss": zero,
-        "nrc_query_frac": zero,
+        "nrc_loss": nrc_loss,
+        "nrc_query_frac": query_frac,
     }
+    if cfg.nrc_debug is not None and nrc:
+        # The last sample's counters, or the cache (before this frame's
+        # training) seen at the primary hits.
+        if cfg.nrc_debug == "bounce_heatmap":
+            outputs["nrc_debug"] = nrc_aux["n_vert"].reshape(h, w)
+        elif cfg.nrc_debug == "query_bounce":
+            outputs["nrc_debug"] = nrc_aux["term_bounce"].reshape(h, w)
+        elif cfg.nrc_debug == "cache_view":
+            surf0 = {k: gbuf[k] for k in ("position", "normal_s", "albedo", "roughness", "metalness")}
+            pred = query_cache(state["nrc"]["ema_params"], surf0, gbuf["view"], scene["aabb_min"],
+                               scene["aabb_max"], learn_irradiance=cfg.nrc_learn_irradiance)
+            outputs["nrc_debug"] = torch.where(gbuf["hit"][..., None], pred, 0.0).reshape(h, w, 3)
+        else:
+            raise ValueError(f"unknown nrc_debug mode: {cfg.nrc_debug!r}")
     return outputs, new_state
 
 
@@ -277,17 +322,24 @@ class Renderer:
 
     def resize(self, width: int, height: int):
         """Reallocate the per-resolution state (the SVGF history and the
-        frame counter) at a new size; the scene, tables and sun stay."""
+        frame counter) at a new size; the scene, tables, sun and the NRC
+        cache stay."""
+        nrc = self.state.get("nrc")
         self.cfg = dataclasses.replace(self.cfg, width=width, height=height)
         self.state = init_frame_state(self.cfg, self.device)
+        if nrc is not None:
+            self.state["nrc"] = nrc
 
     def update_config(self, cfg: RenderConfig):
         """Swap the configuration between frames.  A resolution change
-        goes through `resize`; the tables stay as packed."""
+        goes through `resize`; the tables stay as packed.  Turning NRC on
+        creates a cache where the state holds none."""
         if (cfg.width, cfg.height) != (self.cfg.width, self.cfg.height):
             raise ValueError("update_config cannot change resolution; use resize()")
         check_supported(cfg)
         self.cfg = cfg
+        if cfg.enable_nrc and "nrc" not in self.state:
+            self.state["nrc"] = init_cache(seed=0, device=self.device)
 
     @torch.no_grad()
     def update_instances(self, transforms):

@@ -67,10 +67,12 @@ def unflatten_params(like: dict, leaves) -> dict:
 
 
 def detach_state(state):
-    """A frame state (nested dicts of tensors and Python values) with every
-    tensor detached."""
+    """A frame state (nested dicts and lists of tensors and Python values)
+    with every tensor detached."""
     if isinstance(state, dict):
         return {k: detach_state(v) for k, v in state.items()}
+    if isinstance(state, list):
+        return [detach_state(v) for v in state]
     return state.detach() if isinstance(state, torch.Tensor) else state
 
 
@@ -88,28 +90,37 @@ class Adam:
         return {"count": 0, "mu": unflatten_params(params, zeros),
                 "nu": unflatten_params(params, [z.clone() for z in zeros])}
 
-    def apply(self, params: dict, grads: list, opt_state: dict):
-        """One update of every leaf (a zero gradient still moves a leaf whose
-        first moment is not zero, as in optax).  Returns (params, opt_state)
-        as new tensors."""
-        new = [t.detach().clone() for t in flatten_params(params)]
+    def update_leaves(self, leaves: list, grads: list, count: int, mu: list, nu: list):
+        """One update of a list of leaves after `count` earlier steps, with
+        their first and second moments.  Returns (leaves, mu, nu) as new
+        tensors."""
+        new = [t.detach().clone() for t in leaves]
         opt = torch.optim.Adam(new, lr=self.lr, betas=self.betas, eps=self.eps)
-        mu, nu = flatten_params(opt_state["mu"]), flatten_params(opt_state["nu"])
         for p, g, m, v in zip(new, grads, mu, nu):
             p.grad = g.detach()
             opt.state[p] = {
-                "step": torch.tensor(float(opt_state["count"]), dtype=torch.float32),
+                "step": torch.tensor(float(count), dtype=torch.float32),
                 "exp_avg": m.detach().clone(),
                 "exp_avg_sq": v.detach().clone(),
             }
         opt.step()
-        state = {
-            "count": int(opt_state["count"]) + 1,
-            "mu": unflatten_params(params, [opt.state[p]["exp_avg"] for p in new]),
-            "nu": unflatten_params(params, [opt.state[p]["exp_avg_sq"] for p in new]),
-        }
+        out_mu = [opt.state[p]["exp_avg"] for p in new]
+        out_nu = [opt.state[p]["exp_avg_sq"] for p in new]
         for p in new:
             p.grad = None
+        return new, out_mu, out_nu
+
+    def apply(self, params: dict, grads: list, opt_state: dict):
+        """One update of every leaf (a zero gradient still moves a leaf whose
+        first moment is not zero, as in optax).  Returns (params, opt_state)
+        as new tensors."""
+        new, mu, nu = self.update_leaves(flatten_params(params), grads, int(opt_state["count"]),
+                                         flatten_params(opt_state["mu"]), flatten_params(opt_state["nu"]))
+        state = {
+            "count": int(opt_state["count"]) + 1,
+            "mu": unflatten_params(params, mu),
+            "nu": unflatten_params(params, nu),
+        }
         return unflatten_params(params, new), state
 
 

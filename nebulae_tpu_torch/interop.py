@@ -3,7 +3,8 @@
 Nothing here imports JAX: the caller converts JAX arrays with `np.asarray`
 first.  Used by the parity tests to feed both packages the same inputs, and
 to hand a JAX frame state (SVGF history included), train parameters, optax
-Adam state and traversal tables (packed or refit) to the port.
+Adam state, the neural radiance cache's state and traversal tables (packed
+or refit) to the port.
 """
 
 from __future__ import annotations
@@ -37,13 +38,49 @@ def sun_from_arrays(direction, radiance, tan_half_angle, sky_color, device) -> S
 
 def frame_state_from_arrays(state: dict, device) -> dict:
     """A JAX frame state (init_frame_state or after a frame, leaves as
-    numpy) -> the port's frame state.  Extra JAX-only entries (the bucket
-    scheduler's live counts, NRC) are dropped."""
+    numpy) -> the port's frame state, the NRC cache state included.  The
+    bucket scheduler's live counts, which only JAX keeps, are dropped."""
     hist = state["svgf"]
-    return {
+    out = {
         "svgf": {k: torch.from_numpy(np.array(hist[k], np.float32)).to(device) for k in _HIST_KEYS},
         "frame": int(np.asarray(state["frame"])),
         "reset_history": bool(np.asarray(state["reset_history"])),
+    }
+    if "nrc" in state:
+        out["nrc"] = nrc_state_from_arrays(state["nrc"], device)
+    return out
+
+
+def mlp_params_from_arrays(params, device) -> list:
+    """A JAX MLP parameter list of {"w", "b"} (numpy) -> the port's."""
+    return [{k: _tensor(layer[k], device) for k in ("w", "b")} for layer in params]
+
+
+def _find_adam_state(state):
+    """The ScaleByAdamState (the one node with mu) in an optax state nest."""
+    if hasattr(state, "mu"):
+        return state
+    if isinstance(state, (tuple, list)):
+        for s in state:
+            found = _find_adam_state(s)
+            if found is not None:
+                return found
+    return None
+
+
+def nrc_state_from_arrays(cache_state: dict, device) -> dict:
+    """JAX's NRC cache state {params, ema_params, opt_state} (leaves as
+    numpy; opt_state as optax nests it, (EmptyState, (ScaleByAdamState,
+    EmptyState))) -> the port's (nrc.cache.init_cache's layout)."""
+    adam = _find_adam_state(cache_state["opt_state"])
+    return {
+        "params": mlp_params_from_arrays(cache_state["params"], device),
+        "ema_params": mlp_params_from_arrays(cache_state["ema_params"], device),
+        "opt_state": {
+            "count": int(np.asarray(adam.count)),
+            "mu": mlp_params_from_arrays(adam.mu, device),
+            "nu": mlp_params_from_arrays(adam.nu, device),
+        },
     }
 
 
@@ -59,11 +96,10 @@ def params_from_arrays(params: dict, device) -> dict:
 
 
 def adam_state_from_optax(state, device) -> dict:
-    """optax's ScaleByAdamState (count, mu, nu; leaves as numpy), or the
-    state tuple of optax.adam that starts with it -> the port's Adam state
-    (engine.train.Adam)."""
-    if not hasattr(state, "mu"):
-        state = state[0]
+    """optax's ScaleByAdamState (count, mu, nu; leaves as numpy), or an
+    optax state nest that holds it (optax.adam's tuple) -> the port's Adam
+    state (engine.train.Adam)."""
+    state = _find_adam_state(state)
     return {
         "count": int(np.asarray(state.count)),
         "mu": params_from_arrays(state.mu, device),

@@ -16,6 +16,11 @@ frame take the full-texture-shading path at every bounce.
                         80 MB byte gate, so "auto" routes it to paging.
   box_scene()           a closed box of 12 untextured triangles: a BVH
                         whose root is a leaf (the one-node tables, K8).
+  torus_atrium(...)     a torus_field enclosed by four walls and open to
+                        the sky (JAX's helmet_atrium around the tori): the
+                        interior where the radiance cache's handoff fires;
+                        small_atrium and bench_atrium at textured_scene's
+                        and bench_scene's sizes, atrium_camera inside it.
   procedural_envmap()   the 64x128 lat-long sky of JAX's app, for
                         enable_envmap.
 """
@@ -239,6 +244,41 @@ def torus_field(seed: int, nx: int, nz: int, nu: int, nv: int, n_materials: int,
     return fs
 
 
+def torus_atrium(seed: int, nx: int, nz: int, nu: int, nv: int, n_materials: int, map_size: int) -> FlatScene:
+    """torus_field(seed, nx, nz, nu, nv, n_materials, map_size) enclosed by
+    the four walls of JAX's helmet_atrium (8 untextured triangles): their
+    top at the field's top plus 0.6 of its height, a 4% margin, red and
+    green side walls, open to the sky above."""
+    fs = torus_field(seed, nx, nz, nu, nv, n_materials, map_size)
+    lo, hi = fs.aabb_min.copy(), fs.aabb_max.copy()
+    y0, y1 = float(lo[1]), float(hi[1]) + 0.6 * float(hi[1] - lo[1])
+    m = 0.04 * float(max(hi[0] - lo[0], hi[2] - lo[2]))
+    x0, x1, z0, z1 = float(lo[0]) - m, float(hi[0]) + m, float(lo[2]) - m, float(hi[2]) + m
+
+    def wall(a, b, c, d):
+        return np.array([[a, b, c], [a, c, d]], np.float32)
+
+    walls = [
+        (wall([x0, y0, z0], [x1, y0, z0], [x1, y1, z0], [x0, y1, z0]), [0, 0, 1], [0.7, 0.7, 0.65]),
+        (wall([x1, y0, z1], [x0, y0, z1], [x0, y1, z1], [x1, y1, z1]), [0, 0, -1], [0.7, 0.7, 0.65]),
+        (wall([x0, y0, z1], [x0, y0, z0], [x0, y1, z0], [x0, y1, z1]), [1, 0, 0], [0.65, 0.2, 0.15]),
+        (wall([x1, y0, z0], [x1, y0, z1], [x1, y1, z1], [x1, y1, z0]), [-1, 0, 0], [0.15, 0.55, 0.2]),
+    ]
+    for tris, n, albedo in walls:
+        _append_flat_tris(fs, tris, n, albedo)
+    return fs
+
+
+def small_atrium(seed: int = 0) -> FlatScene:
+    """torus_atrium at textured_scene's size (~5k triangles, 64x64 maps)."""
+    return torus_atrium(seed, nx=2, nz=1, nu=40, nv=30, n_materials=2, map_size=64)
+
+
+def bench_atrium(seed: int = 0) -> FlatScene:
+    """torus_atrium at bench_scene's size (~139k triangles, 512x512 maps)."""
+    return torus_atrium(seed, nx=3, nz=3, nu=110, nv=70, n_materials=3, map_size=512)
+
+
 def textured_scene(seed: int = 0) -> FlatScene:
     """~5k triangles (two 2400-triangle tori + ground), 64x64 maps: above
     the 4096-triangle brute-force limit, small enough for CPU tests."""
@@ -314,3 +354,14 @@ def bench_camera(fs: FlatScene, fov_y_deg: float = 60.0) -> Camera:
     ext = float(np.max(hi - lo))
     eye = center + np.array([0.55 * ext, 0.45 * ext, 0.85 * ext], np.float32)
     return Camera(eye=eye, target=center, fov_y_deg=fov_y_deg)
+
+
+def atrium_camera(fs: FlatScene, fov_y_deg: float = 60.0) -> Camera:
+    """A camera inside the atrium's walls, near a top corner, looking
+    across (JAX's atrium_camera)."""
+    lo, hi = fs.aabb_min, fs.aabb_max
+    center = (lo + hi) * 0.5
+    ext = hi - lo
+    eye = np.array([center[0] + 0.38 * ext[0], lo[1] + 0.82 * ext[1], center[2] + 0.40 * ext[2]], np.float32)
+    target = np.array([center[0] - 0.2 * ext[0], lo[1] + 0.25 * ext[1], center[2] - 0.25 * ext[2]], np.float32)
+    return Camera(eye=eye, target=target, fov_y_deg=fov_y_deg)

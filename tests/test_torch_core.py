@@ -258,7 +258,8 @@ def test_mip_level_from_uv_matches(scene_pair):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port (in a fresh interpreter) leaves
-    jax and nebulae_tpu out of sys.modules; chip_smoke.py imports neither."""
+    jax and nebulae_tpu out of sys.modules, the radiance cache's modules
+    included; chip_smoke.py imports neither."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import nebulae_tpu_torch as p\n"
@@ -269,6 +270,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " or m == 'nebulae_tpu']\n"
         "print(len([m for m in sys.modules if m.startswith('nebulae_tpu_torch')]))\n"
         "assert not bad, bad\n"
+        "nrc = ['nebulae_tpu_torch.nrc.' + m for m in ('encoding', 'mlp', 'cache')]\n"
+        "nrc += ['nebulae_tpu_torch.passes.nrc_pathtrace', 'nebulae_tpu_torch.utils.nrc_quality']\n"
+        "assert all(m in sys.modules for m in nrc), nrc\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr

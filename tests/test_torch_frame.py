@@ -169,9 +169,19 @@ def test_renderer_needs_cuda_unless_cpu_is_asked_for(frames):
 
 @pytest.mark.parametrize("change", [{"enable_nrc": True}, {"tracer": "bvh"}])
 def test_unported_configurations_raise(frames, change):
+    """tracer="bvh" is not ported and raises; the neural radiance cache is
+    ported: a Renderer with enable_nrc builds and renders (its parity with
+    JAX is tests/test_torch_nrc_frame.py's)."""
     from nebulae_tpu_torch.config import RenderConfig
     from nebulae_tpu_torch.engine.renderer import Renderer
 
     cfg = dataclasses.replace(RenderConfig(**KW), **change)
+    if change.get("enable_nrc"):
+        r = Renderer(frames["fs"], cfg, device="cpu")
+        assert r.state["nrc"]["opt_state"]["count"] == 0
+        out = r.render(frames["cam"])
+        assert np.isfinite(out["ldr"].numpy()).all()
+        assert float(out["nrc_loss"]) > 0.0 and r.state["nrc"]["opt_state"]["count"] > 0
+        return
     with pytest.raises(NotImplementedError):
         Renderer(frames["fs"], cfg, device="cpu")

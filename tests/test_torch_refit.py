@@ -406,8 +406,9 @@ def test_resize_and_update_config(textured):
 
     with pytest.raises(ValueError, match="resize"):
         r.update_config(RenderConfig(**kw))
-    with pytest.raises(NotImplementedError):
-        r.update_config(RenderConfig(**{**kw, "width": 24, "height": 16, "enable_nrc": True}))
+    assert "nrc" not in r.state
+    r.update_config(RenderConfig(**{**kw, "width": 24, "height": 16, "enable_nrc": True}))
+    assert r.state["nrc"]["opt_state"]["count"] == 0  # turning the cache on creates one
     assert r.cfg.max_bounces == 2
     r.update_config(RenderConfig(**{**kw, "width": 24, "height": 16, "max_bounces": 1}))
     assert r.cfg.max_bounces == 1 and r.tables is tables
