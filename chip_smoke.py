@@ -83,7 +83,23 @@ Phases (any failure raises and exits non-zero):
               profiled; 64x64 NRC frames and a step on the GPU against the
               CPU plain path from one cache; the quality probe on the card
               at its defaults (ratio < 1)
- 11. summary  one {"kernels": [...]} line, then the device line last
+ 11. app      the app shell on a glTF scene: the ~139k-triangle torus field
+              with 9 materials and maps at Sponza's sizes (1024x1024 base
+              colour, a 2048x2048 metallic-roughness map under
+              --max-texture-dim 1024, a 512x512 normal map, a 1000x750
+              emissive map) written as .glb and .gltf + .bin + PNG and
+              loaded from both (equal arrays; parse, decode, pack and BVH
+              seconds); app.run at its defaults (1920x1080, 1 spp, 8
+              bounces, SVGF, ACES) with --orbit-speed 0.5: 3 warm-up and 8
+              timed frames (frame_ms from metrics.jsonl, launch counts),
+              the 3rd of 3 orbiting frames under --profile (busy ms, the
+              reprojection's device ms), K1-K3 held on each launch of one
+              app frame; a run of 8 frames checkpointed after 4 and a run
+              resumed from it (frames equal byte for byte), without and
+              with --nrc; a --bvh-wide 2 frame (K7) and a --tracer bvh
+              frame (equal to --tracer pallas); 64x64 app frames on the GPU
+              against --device cpu, with GI and with --no-gi
+ 12. summary  one {"kernels": [...]} line, then the device line last
 Each phase logs its seconds; each profile lists every launch of a port
 kernel with its grid, block, registers and time.  Imports nothing of JAX or
 of the JAX package.
@@ -210,13 +226,8 @@ def _trace_events(prof) -> list:
 def profile_frame(render, kernel_names, frame_ms: float, phases=PHASES, what: str = "frame",
                   nested=()) -> dict:
     """One frame (or train step) under torch.profiler, read from its Chrome
-    trace: device busy time (union of kernel, copy and set spans), the idle
-    share of the unprofiled mean time, device time per phase (each kernel
-    goes to the record_function range that launched it), the port kernels'
-    share, and the costliest kernels.  For each range named in `nested`
-    (one that runs inside the phases), the device time of the kernels
-    launched inside it, of those the matrix products', and its costliest
-    kernels.  Returns the device ms by phase and by nested range."""
+    trace by profile_report.  Returns the device ms by phase and by nested
+    range."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -226,7 +237,20 @@ def profile_frame(render, kernel_names, frame_ms: float, phases=PHASES, what: st
         render()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = _trace_events(prof)
+    return profile_report(_trace_events(prof), kernel_names, frame_ms, wall_ms, phases, what, nested)
+
+
+def profile_report(events, kernel_names, frame_ms: float, wall_ms: float, phases=PHASES, what: str = "frame",
+                   nested=()) -> dict:
+    """A profiled run's Chrome-trace events: device busy time (union of
+    kernel, copy and set spans), the idle share of the unprofiled
+    `frame_ms`, device time per phase (each kernel goes to the
+    record_function range that launched it), the port kernels' share and
+    each of their launches, and the costliest kernels.  For each range
+    named in `nested` (one that runs inside the phases), the device time of
+    the kernels launched inside it, of those the matrix products', and its
+    costliest kernels.  Returns the device ms by phase and by nested range,
+    the busy ms and each port kernel's launch count."""
     dev = [e for e in events if e.get("cat") in DEVICE_CATS and "dur" in e]
     if not dev:
         raise RuntimeError("the profiler recorded no device activity")
@@ -292,8 +316,9 @@ def profile_frame(render, kernel_names, frame_ms: float, phases=PHASES, what: st
         top = sorted(acc_n["kernels"].items(), key=lambda kv: -kv[1])[:6]
         log(f"profile: inside {n}: device {acc_n['ms']:.3f} ms, of it matrix products {acc_n['products_ms']:.3f} ms; "
             + "; ".join(f"{ms:.3f} ms {k[:70]}" for k, ms in top))
-    return {"phases": phase_ms, "nested": {n: {k: v for k, v in a.items() if k != "kernels"}
-                                           for n, a in nested_ms.items()}}
+    counts = {n: sum(1 for e in dev if n in e["name"]) for n in kernel_names}
+    return {"phases": phase_ms, "busy_ms": busy, "launches": counts,
+            "nested": {n: {k: v for k, v in a.items() if k != "kernels"} for n, a in nested_ms.items()}}
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -1504,6 +1529,29 @@ def options_phase(base_cfg, fs, bvh) -> dict:
     return counts
 
 
+def hold_fat4_launches(what, tables, k1s, k2s, k3s) -> None:
+    """K1, K2 and K3 held against their plain versions on each recorded
+    launch of a frame (over `tables`), max error 0; logs each launch and
+    each kernel's sums."""
+    from nebulae_tpu_torch.kernels import trace as kt
+
+    for tag, launches_, hold, n_caps, kernel, plain in (
+            ("K1", k1s, hold_closest, 1, lambda a, b, t: kt.closest_hit_fat4(a, b, tables, t),
+             lambda a, b, t, w: kt.closest_hit_fat4_plain(a, b, tables, t, work=w)),
+            ("K2", k2s, hold_combo, 2, lambda a, b, l_, tb, tl: kt.shadow_closest_fat4(a, b, l_, tables, tb, tl),
+             lambda a, b, l_, tb, tl, w: kt.shadow_closest_fat4_plain(a, b, l_, tables, tb, tl, work=w)),
+            ("K3", k3s, hold_any, 1, lambda a, b, t: kt.any_hit_fat4(a, b, tables, t),
+             lambda a, b, t, w: kt.any_hit_fat4_plain(a, b, tables, t, work=w))):
+        h = Held()
+        for i, args in enumerate(launches_):
+            ms = h.ms
+            hold(h, f"{tag} {what} launch {i}", kernel, plain, *args[:-n_caps], tables, *args[-n_caps:])
+            log(f"{tag} {what} launch {i}: {args[0].shape[0]} rays, kernel {h.ms - ms:.4f} ms")
+        assert h.err == 0.0, f"{tag} on a {what}: max error {h.err}"
+        log(f"{tag} on a {what}'s {len(launches_)} launches: max err {h.err:.3g}, kernel {h.ms:.3f} ms, "
+            f"plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms ({h.by})")
+
+
 def nrc_frames(r, cam_obj, wrappers, n_warm, n_timed, what, may_idle=("any_fat4",)):
     """n_warm + n_timed frames of an NRC renderer with the launch counts set
     to 0 just before and read just after; logs each frame's nrc_loss and
@@ -1693,22 +1741,7 @@ def nrc_phase(base_cfg, fs, bvh) -> None:
     # K1, K2 and K3 on each of their launches in one NRC frame.
     k1s, k2s, k3s = recorded_launches(lambda: r.render(cam_obj), kt.closest_hit_fat4, kt.shadow_closest_fat4,
                                       kt.any_hit_fat4)
-    tables = r.tables
-    for tag, launches_, hold, n_caps, kernel, plain in (
-            ("K1", k1s, hold_closest, 1, lambda a, b, t: kt.closest_hit_fat4(a, b, tables, t),
-             lambda a, b, t, w: kt.closest_hit_fat4_plain(a, b, tables, t, work=w)),
-            ("K2", k2s, hold_combo, 2, lambda a, b, l_, tb, tl: kt.shadow_closest_fat4(a, b, l_, tables, tb, tl),
-             lambda a, b, l_, tb, tl, w: kt.shadow_closest_fat4_plain(a, b, l_, tables, tb, tl, work=w)),
-            ("K3", k3s, hold_any, 1, lambda a, b, t: kt.any_hit_fat4(a, b, tables, t),
-             lambda a, b, t, w: kt.any_hit_fat4_plain(a, b, tables, t, work=w))):
-        h = Held()
-        for i, args in enumerate(launches_):
-            ms = h.ms
-            hold(h, f"{tag} nrc frame launch {i}", kernel, plain, *args[:-n_caps], tables, *args[-n_caps:])
-            log(f"{tag} nrc frame launch {i}: {args[0].shape[0]} rays, kernel {h.ms - ms:.4f} ms")
-        assert h.err == 0.0, f"{tag} on an NRC frame: max error {h.err}"
-        log(f"{tag} on an NRC frame's {len(launches_)} launches: max err {h.err:.3g}, kernel {h.ms:.3f} ms, "
-            f"plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms ({h.by})")
+    hold_fat4_launches("nrc frame", r.tables, k1s, k2s, k3s)
     del k1s, k2s, k3s
     mlp_forms(r, cam_obj)
     cam = make_camera_arrays(cam_obj, WIDTH, HEIGHT, r.device)
@@ -1734,6 +1767,263 @@ def nrc_phase(base_cfg, fs, bvh) -> None:
     probe = nrc_quality_probe()
     log(f"nrc probe: {json.dumps(probe)} in {time.perf_counter() - t0:.1f} s")
     assert probe["ratio"] < 1.0, f"nrc probe: the cache does not help at the defaults: {probe}"
+
+
+# Phase 11: the app on a glTF scene.  3 warm-up and 8 timed frames.
+APP_WARM, APP_TIMED = 3, 8
+
+
+def app_field_files(tmp: Path) -> tuple[Path, Path]:
+    """The ~139k-triangle torus field (bench_scene's geometry, 8 torus
+    materials and the ground) written by write_gltf as field.glb and as
+    field.gltf with field.bin and PNG files, with maps at Sponza's sizes:
+    a 1024x1024 base colour map for each of 7 materials, one 2048x2048
+    metallic-roughness map (halved by --max-texture-dim 1024), one 512x512
+    normal map (upsampled into every slot) and one 1000x750 emissive map
+    (the 8th material's slot is 750x1000; its mips reach 375 -> 187 rows,
+    a non-integer area resize).  The torus of material 0 has no TANGENT."""
+    import numpy as np
+
+    from nebulae_tpu_torch.utils import testscenes as ts
+
+    fs = ts.torus_field(0, nx=3, nz=3, nu=110, nv=70, n_materials=8, map_size=8)
+    rng = np.random.default_rng(11)
+    normal = ts._material_maps(rng, 512)[2]
+    mr = ts._material_maps(rng, 2048)[1]
+    yy, xx = np.mgrid[0:750, 0:1000]
+    glow = ((np.sin(xx / 37.0) * np.cos(yy / 23.0)) * 0.5 + 0.5) * 255.0
+    emissive = np.stack([glow, glow * 0.8, 255.0 - glow, np.full_like(glow, 255.0)], -1).astype(np.uint8)
+    mats = ts.scene_materials(fs)
+    for m in range(8):
+        mats[m].update(base_color=ts._material_maps(rng, 1024)[0] if m < 7 else None,
+                       metallic_roughness=mr if m < 7 else None, normal=normal,
+                       emissive=emissive if m == 7 else None)
+    mats[7]["emissive_factor"] = np.float32([2.0, 1.6, 1.0])
+    return ts.write_gltf(tmp / "field.glb", fs, mats), ts.write_gltf(tmp / "field.gltf", fs, mats)
+
+
+def _frames_of(out: Path) -> list:
+    from nebulae_tpu_torch.utils.png import read_png
+
+    return [read_png(p) for p in sorted(out.glob("frame_*.png"))]
+
+
+def _u8_close(a, b, what: str) -> list:
+    """8-bit frames from two devices: the share of pixels whose channels
+    all differ by at most 1 must be >= 0.99 and the mean of each pixel's
+    largest difference < 0.25, as tests/test_torch_app.py holds the port to
+    JAX (the frame checks' rtol 1e-3 / atol 1e-4 on ldr move an sRGB byte
+    by at most 0.33 before rounding).  Returns [share, mean]."""
+    import numpy as np
+
+    assert a.shape == b.shape, f"{what}: shapes {a.shape} and {b.shape}"
+    d = np.abs(a.astype(np.int32) - b.astype(np.int32)).max(-1)
+    share, mean = float((d <= 1).mean()), float(d.mean())
+    assert share >= 0.99 and mean < 0.25, f"{what}: {share:.4f} of pixels within 1 level, mean difference {mean:.4f}"
+    return [share, mean]
+
+
+def last_frame_events(events, first: str = "nebulae/gbuffer") -> list:
+    """The Chrome-trace events of a profiled run of several frames that
+    belong to its last frame: host events from the last `first` range on,
+    and device events launched from then on (by their launch's
+    correlation; an untraced launch by the device event's own start)."""
+    cut = max(e["ts"] for e in events if e.get("cat") == "user_annotation" and e.get("name") == first)
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if (e.get("cat") or "").startswith("cuda_") and "correlation" in e.get("args", {})}
+
+    def when(e):
+        if e.get("cat") in DEVICE_CATS:
+            return launch_ts.get(e.get("args", {}).get("correlation"), e.get("ts", cut - 1))
+        return e.get("ts", cut - 1)
+
+    return [e for e in events if when(e) >= cut]
+
+
+def app_phase(smi: str) -> dict:
+    """Phase 11: the app (`nebulae_tpu_torch.app.run`, the loop of `main`)
+    on a ~139k-triangle glTF at its defaults: 1920x1080, 1 spp, 8 bounces,
+    SVGF, ACES, an orbiting camera.  Writes the scene as .glb and .gltf and
+    loads both (equal arrays; seconds by stage and the BVH build); times
+    3 + 8 frames (frame_ms from metrics.jsonl, launch counts around the
+    run); profiles 3 orbiting frames (--profile) and reads the 3rd, whose
+    history is reprojected; holds K1-K3 on each launch of one
+    app frame; resumes from a checkpoint without and with --nrc (the resumed
+    frames equal the uninterrupted run's, byte for byte); renders a
+    --bvh-wide 2 frame (K7) and a --tracer bvh frame (equal to --tracer
+    pallas); and holds 64x64 app frames on the GPU, with GI and without, to
+    --device cpu.  Returns the numbers it logs."""
+    import tempfile
+
+    import torch
+
+    from nebulae_tpu_torch.utils import crashdump
+
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            return _app_phase(smi, Path(tmp))
+    finally:
+        crashdump.uninstall()  # the app installed its crash hook on this process
+        torch.cuda.empty_cache()
+
+
+def _app_phase(smi: str, tmp: Path) -> dict:
+    import numpy as np
+    import torch
+
+    from nebulae_tpu_torch import app
+    from nebulae_tpu_torch.bvh.cbuilder import build_bvh_native
+    from nebulae_tpu_torch.core.scene import load_scene
+    from nebulae_tpu_torch.kernels import svgf as ksvgf
+    from nebulae_tpu_torch.kernels import trace as kt
+    from nebulae_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from nebulae_tpu_torch.utils.testscenes import textured_scene, write_gltf
+
+    res = {"device": smi}
+    fat4 = {"closest_fat4": kt.closest_hit_fat4, "shadow_closest_fat4": kt.shadow_closest_fat4,
+            "any_fat4": kt.any_hit_fat4, "atrous_fwd": ksvgf.atrous_step}
+    t0 = time.perf_counter()
+    glb, gltf = app_field_files(tmp)
+    res["write_s"] = time.perf_counter() - t0
+    scenes = {}
+    for path in (glb, gltf):
+        t0 = time.perf_counter()
+        scenes[path.suffix] = load_scene(path, max_texture_dim=1024)
+        log(f"app load {path.name}: {time.perf_counter() - t0:.3f} s ("
+            + ", ".join(f"{k} {v:.3f}" for k, v in scenes[path.suffix].seconds.items()) + ")")
+    a, b = (scenes[k].flat.field_arrays() for k in (".glb", ".gltf"))
+    for k, v in a.items():
+        assert (v is None and b[k] is None) or np.array_equal(v, b[k]), f"app load: {k} differs, .glb vs .gltf"
+    fs = scenes[".glb"].flat
+    res["load_s"] = dict(scenes[".glb"].seconds)
+    t0 = time.perf_counter()
+    fs.device_arrays()
+    res["load_s"]["atlas_mips_quad_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bvh = build_bvh_native(fs.tri_pos, max_leaf=15)
+    res["load_s"]["bvh_s"] = time.perf_counter() - t0
+    log(f"app scene: {fs.num_triangles} triangles, {fs.num_materials} materials, {fs.textures.shape[0]} "
+        f"maps, atlas {fs.mat_tex.shape} (slots {fs.mat_tex_hw.tolist()}); .glb and .gltf loads equal; "
+        f"seconds {json.dumps({k: round(v, 3) for k, v in res['load_s'].items()})}, {bvh.num_nodes} BVH nodes")
+    del scenes, a, b, bvh
+    common = ["--scene", str(glb), "--crash-dir", str(tmp / "crash")]
+
+    # The app at its defaults with an orbiting camera.
+    out = tmp / "run"
+    _zero(fat4)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = app.run(common + ["--frames", str(APP_WARM + APP_TIMED), "--orbit-speed", "0.5", "--out", str(out)])
+    run_s = time.perf_counter() - t0
+    n = {k: f.launches for k, f in fat4.items()}
+    rows = [json.loads(x) for x in (out / "metrics.jsonl").read_text().splitlines()]
+    frames = _frames_of(out)
+    assert len(rows) == len(frames) == APP_WARM + APP_TIMED and (out / "heartbeat").exists(), "app outputs"
+    assert all(float(f[..., :3].std()) > 1.0 for f in frames), "app: a constant frame"
+    per_frame = {k: c / len(rows) for k, c in n.items()}
+    cfg = r.cfg
+    assert (cfg.width, cfg.height, cfg.max_bounces, cfg.spp) == (1920, 1080, 8, 1) and r.route == "single"
+    assert per_frame["closest_fat4"] == 1 and per_frame["atrous_fwd"] == cfg.svgf_atrous_passes, per_frame
+    assert 1 <= per_frame["shadow_closest_fat4"] <= cfg.max_bounces - 1, per_frame
+    timed = [row["frame_ms"] for row in rows[APP_WARM:]]
+    res["frame_ms"] = {"median": statistics.median(timed), "min": min(timed), "max": max(timed),
+                       "all": timed}
+    res["launches_per_frame"] = per_frame
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"app frames ({smi}): frame_ms median {res['frame_ms']['median']:.2f} (min {min(timed):.2f}, max "
+        f"{max(timed):.2f}; timed {[round(t, 2) for t in timed]}; warm-up "
+        f"{[round(x['frame_ms'], 2) for x in rows[:APP_WARM]]}), run {run_s:.1f} s with the load, peak "
+        f"{res['peak_gib']:.2f} GiB, launches per frame {json.dumps(per_frame)}")
+    del r
+
+    # Three orbiting frames under the profiler (--profile), the third read:
+    # its SVGF history exists and the moved camera reprojects it, as on
+    # every timed frame above.  Then K1-K3 on each launch of one app frame.
+    prof_dir = tmp / "prof"
+    app.run(common + ["--frames", "3", "--orbit-speed", "0.5", "--out", str(tmp / "prof_out"),
+                      "--profile", str(prof_dir)])
+    events = last_frame_events(json.loads((prof_dir / "trace.json").read_text())["traceEvents"])
+    prof_ms = json.loads((tmp / "prof_out" / "metrics.jsonl").read_text().splitlines()[-1])["frame_ms"]
+    rep = profile_report(events, FAT4_KERNELS, res["frame_ms"]["median"], prof_ms, what="app frame (3rd, orbiting)",
+                         nested=("nebulae/svgf_reproject",))
+    reproject_ms = rep["nested"]["nebulae/svgf_reproject"]["ms"]
+    assert reproject_ms > 0, "the profiled app frame reprojected no history"
+    res["profile"] = {"busy_ms": rep["busy_ms"], "launches": rep["launches"], "reproject_ms": reproject_ms,
+                      "phases": {k: round(v, 3) for k, v in rep["phases"].items()}}
+    log(f"app profile ({smi}): 3rd orbiting frame busy {rep['busy_ms']:.2f} ms, of it reprojection "
+        f"{reproject_ms:.3f} ms, launches {json.dumps(rep['launches'])}")
+    held = {}
+
+    def record():
+        held["r"] = app.run(common + ["--frames", "1", "--out", str(tmp / "held")])
+
+    k1s, k2s, k3s = recorded_launches(record, kt.closest_hit_fat4, kt.shadow_closest_fat4, kt.any_hit_fat4)
+    hold_fat4_launches("app frame", held.pop("r").tables, k1s, k2s, k3s)
+    res["held_launches"] = [len(k1s), len(k2s), len(k3s)]
+    del k1s, k2s, k3s
+
+    # Resume: 8 frames with a checkpoint after 4, then 4 frames resumed
+    # from it; without and with the radiance cache, no orbit.
+    res["resume"] = {}
+    for tag, extra in (("plain", []), ("nrc", ["--nrc"])):
+        ck, out_a, out_b = tmp / f"ck_{tag}", tmp / f"a_{tag}", tmp / f"b_{tag}"
+        ra = app.run(common + extra + ["--frames", "8", "--checkpoint-dir", str(ck), "--checkpoint-every", "4",
+                                       "--out", str(out_a)])
+        app.run(common + extra + ["--frames", "4", "--resume", str(ck / "step_00000004"), "--out", str(out_b)])
+        fa, fb = _frames_of(out_a), _frames_of(out_b)
+        assert len(fa) == 8 and len(fb) == 4
+        for i in range(4):
+            assert np.array_equal(fa[4 + i], fb[i]), f"resume {tag}: frame {i} differs from frame {4 + i}"
+        ms = [json.loads(x)["frame_ms"] for x in (out_a / "metrics.jsonl").read_text().splitlines()][APP_WARM:]
+        size = sum(f.stat().st_size for f in (ck / "step_00000004").iterdir())
+        t0 = time.perf_counter()
+        d = save_checkpoint(tmp / f"ck2_{tag}", ra.state, step=0)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        load_checkpoint(d, ra.state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        res["resume"][tag] = {"bytes": size, "save_s": save_s, "load_s": load_s,
+                              "frame_ms": {"median": statistics.median(ms), "min": min(ms), "max": max(ms)}}
+        log(f"app resume {tag} ({smi}): frames 5-8 of the run equal the 4 resumed frames byte for byte; "
+            f"checkpoint {size} bytes, save {save_s:.3f} s, load {load_s:.3f} s; the run's frames "
+            f"{APP_WARM + 1}-8 (still camera) frame_ms median {statistics.median(ms):.2f} "
+            f"({[round(t, 2) for t in ms]})")
+        del ra
+
+    # K7 in the app (--bvh-wide 2), and "bvh" against "pallas".
+    fat2 = {"closest_fat": kt.closest_hit_fat, "shadow_closest_fat": kt.shadow_closest_fat,
+            "any_fat": kt.any_hit_fat}
+    _zero(fat2)
+    app.run(common + ["--frames", "1", "--bvh-wide", "2", "--out", str(tmp / "fat2")])
+    n2 = {k: f.launches for k, f in fat2.items()}
+    assert n2["closest_fat"] == 1 and n2["shadow_closest_fat"] >= 1, f"--bvh-wide 2: launches {n2}"
+    for tracer in ("pallas", "bvh"):
+        app.run(common + ["--frames", "1", "--tracer", tracer, "--out", str(tmp / tracer)])
+    f_p, f_b, f_2 = (_frames_of(tmp / k)[0] for k in ("pallas", "bvh", "fat2"))
+    assert np.array_equal(f_p, f_b), "--tracer bvh frame differs from --tracer pallas"
+    res["fat2_launches"] = n2
+    res["fat2_vs_fat4_equal_px"] = float((f_2 == f_p).all(-1).mean())
+    log(f"app --bvh-wide 2: launches {json.dumps(n2)}, {res['fat2_vs_fat4_equal_px']:.4f} of pixels equal to "
+        "the fat4 frame; --tracer bvh frame equals --tracer pallas")
+
+    # 64x64 app frames on the GPU against --device cpu (the plain
+    # versions), with GI and direct light only.
+    small = write_gltf(tmp / "small.glb", textured_scene(0))
+    res["small"] = {}
+    k3 = kt.any_hit_fat4.launches
+    for tag, extra in (("gi", []), ("direct", ["--no-gi"])):
+        for dev in ("cuda", "cpu"):
+            app.run(["--scene", str(small), "--crash-dir", str(tmp / "crash"), "--width", "64", "--height", "64",
+                     "--frames", "2", "--out", str(tmp / f"s_{tag}_{dev}"), "--device", dev] + extra)
+        shares = [_u8_close(g, c, f"64x64 app frame {i} ({tag})") for i, (g, c) in enumerate(
+            zip(_frames_of(tmp / f"s_{tag}_cuda"), _frames_of(tmp / f"s_{tag}_cpu"), strict=True))]
+        res["small"][tag] = shares
+        log(f"app 64x64 {tag}: GPU against the CPU plain path, [share of pixels within 1 level, mean "
+            f"difference] {shares}")
+    assert n["any_fat4"] + kt.any_hit_fat4.launches - k3 > 0, "K3 launched on no app frame"
+    log(f"app: {json.dumps({k: v for k, v in res.items() if k != 'device'})} ({smi})")
+    return res
 
 
 def bench_renderer(width=WIDTH, height=HEIGHT, bvh=None):
@@ -2491,7 +2781,13 @@ def main() -> int:
     nrc_phase(cfg, fs, bvh)
     clock.done("nrc")
 
-    # 11. summary
+    # 11. app: a glTF scene through the app shell
+    del fs, bvh
+    torch.cuda.empty_cache()
+    app_phase(smi)
+    clock.done("app")
+
+    # 12. summary
     sources = {
         "closest_fat4": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1202"),
         "shadow_closest_fat4": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1415"),

@@ -54,7 +54,8 @@ class RenderConfig:
     nrc_debug: str | None = None
     lean_outputs: bool = False
     # "auto" | "bruteforce" | "pallas" (the traversal kernels of the
-    # tables' route); "bvh" is the JAX skip-link walk and is not ported.
+    # tables' route) | "bvh" (JAX's XLA walk of the same tree; here the
+    # tables' kernels, as "pallas").
     tracer: str = "auto"
     # Order the live lanes of each bounce by ray_sort_key before tracing
     # (coherence only: per-ray results do not depend on it).

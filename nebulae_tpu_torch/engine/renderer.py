@@ -11,7 +11,8 @@ tri-chunked, subtree-chunked or one-node).
 The frame's phases run under `record_function` ranges named
 "nebulae/<phase>" (gbuffer, pathtrace, svgf, tonemap; with the neural
 radiance cache nrc_train, then nrc_query in place of pathtrace), so a
-profiler trace can attribute device time to them.
+profiler trace can attribute device time to them; inside svgf,
+"nebulae/svgf_reproject" spans the history's warp when the camera moved.
 """
 
 from __future__ import annotations
@@ -44,12 +45,6 @@ from nebulae_tpu_torch.passes.pathtrace import path_trace
 from nebulae_tpu_torch.passes.svgf import init_history, reproject_history, svgf_denoise
 from nebulae_tpu_torch.passes.tonemap import aces_tonemap
 from nebulae_tpu_torch.tracer.trace import make_tracer
-
-
-def check_supported(cfg: RenderConfig) -> None:
-    """Raise NotImplementedError for configurations this port does not cover."""
-    if cfg.tracer == "bvh":
-        raise NotImplementedError('tracer="bvh" is not ported (ROADMAP Queue 1, item 3)')
 
 
 def pack_scene_tables(bvh, tri_pos: np.ndarray, cfg: RenderConfig) -> tuple[str, dict]:
@@ -102,7 +97,6 @@ def pack_scene_tables(bvh, tri_pos: np.ndarray, cfg: RenderConfig) -> tuple[str,
 def init_frame_state(cfg: RenderConfig, device) -> dict:
     """SVGF history, frame counter and history-reset flag, and with
     cfg.enable_nrc the cache state (init_cache(seed=0))."""
-    check_supported(cfg)
     state = {
         "svgf": init_history(cfg.height, cfg.width, device),
         "frame": 0,
@@ -171,7 +165,6 @@ def render_frame(scene: dict, tables: dict | None, sun: SunLight, cam: dict, sta
     first (once a frame, without gradient), then the query pass reads the
     new state's EMA parameters, detached."""
     dev = resolve_device(device)
-    check_supported(cfg)
     w, h = cfg.width, cfg.height
     closest_fn, any_fn = make_tracer(scene, tables, cfg, device=dev)
 
@@ -224,11 +217,12 @@ def render_frame(scene: dict, tables: dict | None, sun: SunLight, cam: dict, sta
                     and torch.equal(state["svgf"]["prev_eye"], cam["eye"])
                 )
                 if cfg.svgf_reproject and not same_cam:
-                    warped, valid = reproject_history(
-                        hist, gbuf["position"].reshape(h, w, 3), state["svgf"]["prev_viewproj"],
-                        w, h, prev_eye=state["svgf"]["prev_eye"], current_depth=depth,
-                    )
-                    warped["depth"] = torch.where(valid, warped["depth"], -1e9)
+                    with record_function("nebulae/svgf_reproject"):
+                        warped, valid = reproject_history(
+                            hist, gbuf["position"].reshape(h, w, 3), state["svgf"]["prev_viewproj"],
+                            w, h, prev_eye=state["svgf"]["prev_eye"], current_depth=depth,
+                        )
+                        warped["depth"] = torch.where(valid, warped["depth"], -1e9)
                     hist = warped
             denoised, new_hist = svgf_denoise(img, depth, normal, hist, cfg, hit=hit)
             new_hist["prev_viewproj"] = cam["viewproj"]
@@ -284,14 +278,13 @@ class Renderer:
 
     def __init__(self, flat_scene: FlatScene, cfg: RenderConfig, sun: SunLight | None = None,
                  bvh=None, device=None, env_map=None):
-        check_supported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.scene = to_tensors(flat_scene.device_arrays(), self.device)
         if env_map is not None:
             self.scene["env_map"] = torch.as_tensor(np.asarray(env_map, np.float32)).to(self.device)
         t_count = flat_scene.num_triangles
-        needs_tables = cfg.tracer == "pallas" or (
+        needs_tables = cfg.tracer in ("pallas", "bvh") or (
             cfg.tracer == "auto" and t_count > cfg.bruteforce_max_tris
         )
         self.tables = self.route = self.bvh = self.node_lo = self.node_hi = None
@@ -336,7 +329,6 @@ class Renderer:
         creates a cache where the state holds none."""
         if (cfg.width, cfg.height) != (self.cfg.width, self.cfg.height):
             raise ValueError("update_config cannot change resolution; use resize()")
-        check_supported(cfg)
         self.cfg = cfg
         if cfg.enable_nrc and "nrc" not in self.state:
             self.state["nrc"] = init_cache(seed=0, device=self.device)

@@ -94,12 +94,9 @@ def make_tracer(scene: dict, tables: dict | None, cfg, device=None):
     if scene["tri_pos"].device.type != dev.type:
         raise ValueError(f"scene tensors are on {scene['tri_pos'].device}, expected {dev}")
     t_count = scene["tri_pos"].shape[0]
-    mode = cfg.tracer
-    if mode == "bvh":
-        raise NotImplementedError(
-            'tracer="bvh" (the skip-link XLA walk) is not ported; use "auto" or '
-            '"pallas" (ROADMAP Queue 1, item 3)'
-        )
+    # "bvh" names JAX's XLA walk over the same tree; here it is a strategy
+    # knob for the tables' kernels, built even where "auto" goes brute force.
+    mode = "pallas" if cfg.tracer == "bvh" else cfg.tracer
     if mode == "auto":
         mode = "bruteforce" if (tables is None or t_count <= cfg.bruteforce_max_tris) else "pallas"
     if mode == "bruteforce":
@@ -118,7 +115,7 @@ def make_tracer(scene: dict, tables: dict | None, cfg, device=None):
     if mode != "pallas":
         raise ValueError(f"unknown tracer mode: {mode}")
     if tables is None:
-        raise ValueError('tracer="pallas" needs traversal tables')
+        raise ValueError(f'tracer="{cfg.tracer}" needs traversal tables')
     if "tri_chunks" in tables:
         closest, any_hit, combo = kc.closest_tri_chunks, kc.any_tri_chunks, kc.shadow_closest_tri_chunks
     elif "chunks" in tables:

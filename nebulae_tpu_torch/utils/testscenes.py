@@ -23,24 +23,31 @@ frame take the full-texture-shading path at every bounce.
                         and bench_scene's sizes, atrium_camera inside it.
   procedural_envmap()   the 64x128 lat-long sky of JAX's app, for
                         enable_envmap.
+  write_gltf(path, fs)  a FlatScene as a .gltf (+ .bin + PNG) or .glb file,
+                        under a node hierarchy, for the loader and the app;
+                        GltfWriter builds other test files (sparse and
+                        interleaved accessors, data URIs, cameras).
 """
 
 from __future__ import annotations
+
+import base64
+import json
+import struct
+from pathlib import Path
 
 import numpy as np
 
 from nebulae_tpu_torch.core.camera import Camera
 from nebulae_tpu_torch.core.scene import (
+    MAT_DOUBLE_SIDED,
     MAT_HAS_BASECOLOR_TEX,
     MAT_HAS_METALROUGH_TEX,
     MAT_HAS_NORMAL_TEX,
     FlatScene,
     face_normals,
+    srgb_to_linear_np,
 )
-
-
-def _srgb_to_linear_np(c):
-    return np.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4)
 
 
 def _material_maps(rng, size: int):
@@ -193,7 +200,7 @@ def torus_field(seed: int, nx: int, nz: int, nu: int, nv: int, n_materials: int,
         metal[m] = rng.uniform(0.0, 1.0)
         rough[m] = rng.uniform(0.5, 1.0)
         sub = lambda img: img[::4, ::4, :3].astype(np.float32) / 255.0  # noqa: E731
-        avg_albedo[m] = base[m, :3] * _srgb_to_linear_np(sub(alb)).mean(axis=(0, 1))
+        avg_albedo[m] = base[m, :3] * srgb_to_linear_np(sub(alb)).mean(axis=(0, 1))
         mr_mean = sub(mr).mean(axis=(0, 1))
         avg_rough[m] = np.clip(rough[m] * mr_mean[1], 0.02, 1.0)
         avg_metal[m] = np.clip(metal[m] * mr_mean[2], 0.0, 1.0)
@@ -365,3 +372,258 @@ def atrium_camera(fs: FlatScene, fov_y_deg: float = 60.0) -> Camera:
     eye = np.array([center[0] + 0.38 * ext[0], lo[1] + 0.82 * ext[1], center[2] + 0.40 * ext[2]], np.float32)
     target = np.array([center[0] - 0.2 * ext[0], lo[1] + 0.25 * ext[1], center[2] - 0.25 * ext[2]], np.float32)
     return Camera(eye=eye, target=target, fov_y_deg=fov_y_deg)
+
+
+# ---------------------------------------------------------------------------
+# glTF files of test scenes
+# ---------------------------------------------------------------------------
+
+_COMPONENT = {np.dtype(np.int8): 5120, np.dtype(np.uint8): 5121, np.dtype(np.int16): 5122,
+              np.dtype(np.uint16): 5123, np.dtype(np.uint32): 5125, np.dtype(np.float32): 5126}
+_TYPE_OF_WIDTH = {1: "SCALAR", 2: "VEC2", 3: "VEC3", 4: "VEC4", 16: "MAT4"}
+
+
+class GltfWriter:
+    """A glTF 2.0 document built from numpy arrays, for test scenes.
+
+    Accessors go to one binary buffer (an external .bin beside a .gltf, the
+    BIN chunk of a .glb) or, with data_uri=True, to a second buffer stored
+    as a base64 data URI.  Images are uint8 arrays (PNG-encoded by
+    utils/png.py) or encoded bytes; a .gltf stores them as files beside it
+    (or as data URIs), a .glb in bufferViews.  Each add_* returns the new
+    object's index."""
+
+    def __init__(self):
+        self.doc: dict = {"asset": {"version": "2.0", "generator": "nebulae_tpu_torch.utils.testscenes"},
+                          "scenes": [{"nodes": []}], "scene": 0}
+        self._views: list[tuple[bytes, int | None, bool]] = []
+        self._images: list[tuple[bytes, bool]] = []
+
+    def _append(self, key: str, obj: dict) -> int:
+        self.doc.setdefault(key, []).append(obj)
+        return len(self.doc[key]) - 1
+
+    def _view(self, data: bytes, stride: int | None = None, data_uri: bool = False) -> int:
+        self._views.append((data, stride, data_uri))
+        return len(self._views) - 1
+
+    def add_accessor(self, arr, normalized: bool = False, data_uri: bool = False, sparse=None,
+                     minmax: bool = False) -> int:
+        """An accessor of arr [N] or [N, C]; `sparse` = (indices, values)
+        replaces those rows on top of arr."""
+        a = np.ascontiguousarray(arr)
+        n_comp = 1 if a.ndim == 1 else a.shape[1]
+        acc = {"bufferView": self._view(a.tobytes(), data_uri=data_uri), "componentType": _COMPONENT[a.dtype],
+               "count": int(a.shape[0]), "type": _TYPE_OF_WIDTH[n_comp]}
+        if normalized:
+            acc["normalized"] = True
+        if minmax:
+            acc["min"] = a.reshape(a.shape[0], -1).min(0).tolist()
+            acc["max"] = a.reshape(a.shape[0], -1).max(0).tolist()
+        if sparse is not None:
+            idx, vals = np.ascontiguousarray(sparse[0]), np.ascontiguousarray(sparse[1], a.dtype)
+            acc["sparse"] = {"count": int(idx.shape[0]),
+                             "indices": {"bufferView": self._view(idx.tobytes()),
+                                         "componentType": _COMPONENT[idx.dtype]},
+                             "values": {"bufferView": self._view(vals.tobytes())}}
+        return self._append("accessors", acc)
+
+    def add_interleaved(self, arrays) -> list[int]:
+        """Accessors of float32 arrays [N, C_i] interleaved in one strided
+        bufferView."""
+        arrays = [np.asarray(a, np.float32) for a in arrays]
+        n = arrays[0].shape[0]
+        packed = np.concatenate(arrays, axis=1)
+        view = self._view(packed.tobytes(), stride=packed.shape[1] * 4)
+        out, off = [], 0
+        for a in arrays:
+            out.append(self._append("accessors", {"bufferView": view, "byteOffset": off, "componentType": 5126,
+                                                  "count": n, "type": _TYPE_OF_WIDTH[a.shape[1]]}))
+            off += a.shape[1] * 4
+        return out
+
+    def add_image(self, img, data_uri: bool = False, name: str | None = None) -> int:
+        from nebulae_tpu_torch.utils import png
+
+        data = bytes(img) if isinstance(img, (bytes, bytearray)) else png.encode_png(np.asarray(img, np.uint8))
+        self._images.append((data, data_uri))
+        return self._append("images", {"name": name} if name else {})
+
+    def add_sampler(self, wrap_s: int, wrap_t: int | None = None) -> int:
+        return self._append("samplers", {"wrapS": wrap_s, "wrapT": wrap_s if wrap_t is None else wrap_t})
+
+    def add_texture(self, image: int, sampler: int | None = None) -> int:
+        return self._append("textures", {"source": image} if sampler is None else {"source": image,
+                                                                                    "sampler": sampler})
+
+    def add_material(self, material: dict) -> int:
+        return self._append("materials", material)
+
+    def add_mesh(self, primitives: list[dict], name: str = "") -> int:
+        return self._append("meshes", {"name": name, "primitives": primitives})
+
+    def add_camera(self, camera: dict) -> int:
+        return self._append("cameras", camera)
+
+    def add_node(self, root: bool = False, **fields) -> int:
+        i = self._append("nodes", fields)
+        if root:
+            self.doc["scenes"][0]["nodes"].append(i)
+        return i
+
+    def save(self, path) -> Path:
+        """Write a .glb (one file) or a .gltf (with <stem>.bin and
+        <stem>_<i>.png beside it)."""
+        path = Path(path)
+        glb = path.suffix == ".glb"
+        doc = json.loads(json.dumps(self.doc))
+        views = list(self._views)
+        for i, (data, data_uri) in enumerate(self._images):
+            img = doc["images"][i]
+            if glb:
+                views.append((data, None, False))
+                img.update(bufferView=len(views) - 1, mimeType="image/png")
+            elif data_uri:
+                img["uri"] = "data:image/png;base64," + base64.b64encode(data).decode()
+            else:
+                img["uri"] = f"{path.stem}_{i}.png"
+                (path.parent / img["uri"]).write_bytes(data)
+        bufs = [bytearray(), bytearray()]
+        doc["bufferViews"] = []
+        for data, stride, data_uri in views:
+            buf = bufs[1 if data_uri else 0]
+            buf.extend(b"\0" * (-len(buf) % 4))
+            bv = {"buffer": 1 if data_uri else 0, "byteOffset": len(buf), "byteLength": len(data)}
+            if stride:
+                bv["byteStride"] = stride
+            doc["bufferViews"].append(bv)
+            buf.extend(data)
+        bufs[0].extend(b"\0" * (-len(bufs[0]) % 4))
+        doc["buffers"] = [{"byteLength": len(bufs[0])}]
+        if bufs[1]:
+            doc["buffers"].append({"byteLength": len(bufs[1]),
+                                   "uri": "data:application/octet-stream;base64," + base64.b64encode(bufs[1]).decode()})
+        if glb:
+            js = json.dumps(doc).encode()
+            js += b" " * (-len(js) % 4)
+            body = (struct.pack("<II", len(js), 0x4E4F534A) + js
+                    + struct.pack("<II", len(bufs[0]), 0x004E4942) + bytes(bufs[0]))
+            path.write_bytes(struct.pack("<III", 0x46546C67, 2, 12 + len(body)) + body)
+        else:
+            doc["buffers"][0]["uri"] = f"{path.stem}.bin"
+            (path.parent / f"{path.stem}.bin").write_bytes(bytes(bufs[0]))
+            path.write_text(json.dumps(doc))
+        return path
+
+
+def trs_matrix(translation=(0.0, 0.0, 0.0), rotation=(0.0, 0.0, 0.0, 1.0), scale=(1.0, 1.0, 1.0)) -> np.ndarray:
+    """A glTF node's TRS as a 4x4 float64 matrix (column vectors)."""
+    x, y, z, w = rotation
+    r = np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+                  [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+                  [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]])
+    m = np.eye(4)
+    m[:3, :3] = r @ np.diag(np.asarray(scale, np.float64))
+    m[:3, 3] = translation
+    return m
+
+
+def _to_local(world: np.ndarray, pos, nrm, tan):
+    """World-space vertices under the node transform `world` -> its local
+    positions, normals and tangents (float32)."""
+    inv = np.linalg.inv(world)
+    lp = pos.astype(np.float64) @ inv[:3, :3].T + inv[:3, 3]
+    ln = nrm.astype(np.float64) @ world[:3, :3]
+    ln /= np.maximum(np.linalg.norm(ln, axis=-1, keepdims=True), 1e-12)
+    lt = tan[:, :3].astype(np.float64) @ inv[:3, :3].T
+    lt /= np.maximum(np.linalg.norm(lt, axis=-1, keepdims=True), 1e-12)
+    return (lp.astype(np.float32), ln.astype(np.float32),
+            np.concatenate([lt, tan[:, 3:4]], axis=1).astype(np.float32))
+
+
+def scene_materials(fs: FlatScene) -> list[dict]:
+    """A FlatScene's materials as write_gltf takes them: factors, flags and
+    the maps of its `textures` stack (shared arrays stay shared)."""
+    maps = [fs.textures[k, : fs.tex_hw[k, 0], : fs.tex_hw[k, 1]] for k in range(fs.textures.shape[0])]
+    out = []
+    for m in range(fs.num_materials):
+        ids = fs.mat_tex_ids[m]
+        out.append({
+            "base_color_factor": fs.mat_base_color[m], "metallic": float(fs.mat_metallic[m]),
+            "roughness": float(fs.mat_roughness[m]), "emissive_factor": fs.mat_emissive[m],
+            "double_sided": bool(fs.mat_flags[m] & MAT_DOUBLE_SIDED),
+            **{key: (maps[ids[j]] if ids[j] >= 0 else None)
+               for j, key in enumerate(("base_color", "metallic_roughness", "normal", "emissive"))},
+        })
+    return out
+
+
+def write_gltf(path, fs: FlatScene, materials: list[dict] | None = None, no_tangent_material: int = 0) -> Path:
+    """Write a FlatScene's triangles as a glTF file (.gltf with .bin and PNG
+    files beside it, or one .glb); returns the path.
+
+    Each material's triangles become one primitive.  The primitives of the
+    last material (the procedural scenes' ground plane) form a second mesh,
+    unindexed, under a TRS node; the others one indexed mesh under a node
+    with a `matrix`; both nodes hang under a root with a rotation, uniform
+    scale and translation, and the vertices are stored in local space so
+    that the loader's transforms bring them back to the scene's place (to
+    float32 rounding).  The primitive of `no_tangent_material` omits
+    TANGENT, so the loader generates its tangents.  `materials` (default:
+    scene_materials(fs)) gives each material's factors and maps (uint8
+    arrays; one array object used twice is written once)."""
+    mats = scene_materials(fs) if materials is None else materials
+    w = GltfWriter()
+    images: dict[int, int] = {}
+    sampler = w.add_sampler(10497)
+
+    def tex(img):
+        if img is None:
+            return None
+        if id(img) not in images:
+            images[id(img)] = w.add_texture(w.add_image(img), sampler)
+        return {"index": images[id(img)]}
+
+    for m in mats:
+        pbr = {"baseColorFactor": [float(x) for x in m["base_color_factor"]],
+               "metallicFactor": float(m["metallic"]), "roughnessFactor": float(m["roughness"])}
+        mat = {"pbrMetallicRoughness": pbr, "emissiveFactor": [float(x) for x in m["emissive_factor"]],
+               "doubleSided": bool(m.get("double_sided", False))}
+        for key, where, field in (("base_color", pbr, "baseColorTexture"),
+                                  ("metallic_roughness", pbr, "metallicRoughnessTexture"),
+                                  ("normal", mat, "normalTexture"), ("emissive", mat, "emissiveTexture")):
+            t = tex(m.get(key))
+            if t is not None:
+                where[field] = t
+        w.add_material(mat)
+
+    root = trs_matrix((0.4, -0.1, 0.25), (0.0, np.sin(0.2), 0.0, np.cos(0.2)), (1.25, 1.25, 1.25))
+    inner = trs_matrix((-0.3, 0.05, 0.1), (np.sin(-0.15), 0.0, 0.0, np.cos(-0.15)), (0.8, 0.8, 0.8))
+    ground = trs_matrix((0.0, 0.02, -0.05), (0.0, 0.0, 0.0, 1.0), (1.1, 1.0, 0.9))
+    last = fs.num_materials - 1
+    prims: dict[bool, list] = {False: [], True: []}
+    for m in range(fs.num_materials):
+        sel = fs.tri_mat == m
+        if not sel.any():
+            continue
+        is_ground = m == last
+        world = root @ (ground if is_ground else inner)
+        pos, nrm, tan = _to_local(world, fs.tri_pos[sel].reshape(-1, 3), fs.tri_nrm[sel].reshape(-1, 3),
+                                  fs.tri_tan[sel].reshape(-1, 4))
+        attrs = {"POSITION": w.add_accessor(pos, minmax=True), "NORMAL": w.add_accessor(nrm),
+                 "TEXCOORD_0": w.add_accessor(fs.tri_uv[sel].reshape(-1, 2))}
+        if m != no_tangent_material:
+            attrs["TANGENT"] = w.add_accessor(tan)
+        prim = {"attributes": attrs, "material": m}
+        if not is_ground:
+            prim["indices"] = w.add_accessor(np.arange(pos.shape[0], dtype=np.uint32))
+        prims[is_ground].append(prim)
+    children = [w.add_node(mesh=w.add_mesh(prims[False], "tori"), name="tori",
+                           matrix=inner.T.reshape(-1).tolist())]
+    if prims[True]:
+        t, s = ground[:3, 3], np.diag(ground[:3, :3])
+        children.append(w.add_node(mesh=w.add_mesh(prims[True], "ground"), name="ground",
+                                   translation=t.tolist(), scale=s.tolist()))
+    w.add_node(root=True, name="field", children=children, translation=[0.4, -0.1, 0.25],
+               rotation=[0.0, float(np.sin(0.2)), 0.0, float(np.cos(0.2))], scale=[1.25, 1.25, 1.25])
+    return w.save(path)

@@ -258,20 +258,23 @@ def test_mip_level_from_uv_matches(scene_pair):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port (in a fresh interpreter) leaves
-    jax and nebulae_tpu out of sys.modules, the radiance cache's modules
-    included; chip_smoke.py imports neither."""
+    jax, nebulae_tpu, cv2 and PIL out of sys.modules, the radiance cache's,
+    the glTF loader's and the app shell's modules included; chip_smoke.py
+    imports none of them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import nebulae_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'nebulae_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import runpy; runpy.run_path('chip_smoke.py', run_name='not_main')\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax', 'nebulae_tpu.'))"
-        " or m == 'nebulae_tpu']\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'cv2', 'PIL') or m.startswith(('jax.', 'jaxlib', 'flax', "
+        "'nebulae_tpu.', 'cv2.', 'PIL.')) or m == 'nebulae_tpu']\n"
         "print(len([m for m in sys.modules if m.startswith('nebulae_tpu_torch')]))\n"
         "assert not bad, bad\n"
         "nrc = ['nebulae_tpu_torch.nrc.' + m for m in ('encoding', 'mlp', 'cache')]\n"
         "nrc += ['nebulae_tpu_torch.passes.nrc_pathtrace', 'nebulae_tpu_torch.utils.nrc_quality']\n"
+        "nrc += ['nebulae_tpu_torch.' + m for m in ('app', 'core.gltf', 'utils.png', 'utils.checkpoint', "
+        "'utils.crashdump', 'utils.display', 'utils.golden', 'utils.logging', 'utils.metrics', 'utils.profiling')]\n"
         "assert all(m in sys.modules for m in nrc), nrc\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)

@@ -169,19 +169,28 @@ def test_renderer_needs_cuda_unless_cpu_is_asked_for(frames):
 
 @pytest.mark.parametrize("change", [{"enable_nrc": True}, {"tracer": "bvh"}])
 def test_unported_configurations_raise(frames, change):
-    """tracer="bvh" is not ported and raises; the neural radiance cache is
-    ported: a Renderer with enable_nrc builds and renders (its parity with
-    JAX is tests/test_torch_nrc_frame.py's)."""
+    """No configuration is refused any more.  The neural radiance cache: a
+    Renderer with enable_nrc builds and renders (its parity with JAX is
+    tests/test_torch_nrc_frame.py's).  tracer="bvh" (JAX's XLA walk) is a
+    strategy knob in the port: it builds the tables and walks them with
+    the kernels' plain versions, so its frame equals the "pallas" frame
+    bit for bit, and it matches JAX's "bvh" frame as the frame tests do
+    (JAX's "auto" frame here: off the TPU, "auto" resolves to "bvh")."""
     from nebulae_tpu_torch.config import RenderConfig
     from nebulae_tpu_torch.engine.renderer import Renderer
 
     cfg = dataclasses.replace(RenderConfig(**KW), **change)
+    r = Renderer(frames["fs"], cfg, device="cpu")
     if change.get("enable_nrc"):
-        r = Renderer(frames["fs"], cfg, device="cpu")
         assert r.state["nrc"]["opt_state"]["count"] == 0
         out = r.render(frames["cam"])
         assert np.isfinite(out["ldr"].numpy()).all()
         assert float(out["nrc_loss"]) > 0.0 and r.state["nrc"]["opt_state"]["count"] > 0
         return
-    with pytest.raises(NotImplementedError):
-        Renderer(frames["fs"], cfg, device="cpu")
+    assert r.route == "single" and r.tables is not None
+    out = {k: v.numpy() for k, v in r.render(frames["cam"]).items()}
+    pallas = Renderer(frames["fs"], dataclasses.replace(cfg, tracer="pallas"), device="cpu")
+    for k, v in pallas.render(frames["cam"]).items():
+        np.testing.assert_array_equal(out[k], v.numpy(), err_msg=k)
+    np.testing.assert_array_equal(out["hit"], frames["jax"][0]["hit"])
+    _assert_frame_close(out, frames["jax"][0])

@@ -17,7 +17,10 @@ keys): at its defaults it takes ~11 min on the CPU, and chip_smoke.py
 asserts its ratio there.
 Run as a script (JAX_PLATFORMS=cpu python tests/test_torch_nrc_frame.py
 --jax-probe, or --port-probe), this file prints JAX's probe on the same
-small atrium, or the port's at its defaults, both on the CPU.
+small atrium, or the port's at its defaults, both on the CPU; with
+--ema-drift it runs the probe's cache-on warm-up in both packages from one
+cache and prints the relative L2 between their EMA parameters after each
+frame.
 """
 
 import sys
@@ -247,6 +250,47 @@ def port_probe() -> dict:
     return nrc_quality_probe(device="cpu")
 
 
+def ema_drift(frames: int = 64) -> list:
+    """The quality probe's cache-on renderer (small atrium, 48x48, 3
+    bounces, 8 cache path vertices, fast bounce shading, no SVGF or
+    tonemap) in JAX and in the port on the CPU, the port starting from
+    JAX's initial cache: after each of `frames` warm-up frames, the
+    relative L2 between the two packages' EMA parameters (all leaves in
+    one vector).  Prints one line per frame; returns the list."""
+    import jax
+
+    from nebulae_tpu.config import RenderConfig as JCfg
+    from nebulae_tpu.core.scene import FlatScene as JFlatScene
+    from nebulae_tpu.engine.renderer import Renderer as JRenderer
+
+    from nebulae_tpu_torch.config import RenderConfig
+    from nebulae_tpu_torch.engine.renderer import Renderer
+    from nebulae_tpu_torch.interop import nrc_state_from_arrays
+    from nebulae_tpu_torch.utils.testscenes import atrium_camera, small_atrium
+
+    fs = small_atrium(0)
+    cam = atrium_camera(fs)
+    kw = dict(width=48, height=48, spp=1, max_bounces=3, enable_svgf=False, enable_tonemap=False,
+              fast_bounce_shading=True, jitter_primary=False, enable_nrc=True, nrc_max_path_vertices=8)
+    jr = JRenderer(JFlatScene(**fs.field_arrays()), JCfg(**kw))
+    pr = Renderer(fs, RenderConfig(**kw), device="cpu")
+    pr.state["nrc"] = nrc_state_from_arrays(jax.tree.map(np.asarray, jr.state["nrc"]), "cpu")
+
+    def leaves(params):
+        return np.concatenate([np.asarray(layer[k], np.float64).reshape(-1) for layer in params for k in ("w", "b")])
+
+    out = []
+    for i in range(frames):
+        jl = float(np.asarray(jr.render(_jcam(cam))["nrc_loss"]))
+        pl = float(pr.render(cam)["nrc_loss"])
+        j = leaves(jax.tree.map(np.asarray, jr.state["nrc"]["ema_params"]))
+        p = leaves([{k: t.numpy() for k, t in layer.items()} for layer in pr.state["nrc"]["ema_params"]])
+        rel = float(np.linalg.norm(p - j) / np.linalg.norm(j))
+        out.append(rel)
+        print(f"frame {i + 1}: EMA params relative L2 {rel:.3e}; nrc_loss JAX {jl:.6f} port {pl:.6f}", flush=True)
+    return out
+
+
 if __name__ == "__main__":
-    # JAX_PLATFORMS=cpu python tests/test_torch_nrc_frame.py --jax-probe | --port-probe
-    print({"--jax-probe": jax_probe, "--port-probe": port_probe}[sys.argv[1]]())
+    # JAX_PLATFORMS=cpu python tests/test_torch_nrc_frame.py --jax-probe | --port-probe | --ema-drift
+    print({"--jax-probe": jax_probe, "--port-probe": port_probe, "--ema-drift": ema_drift}[sys.argv[1]]())

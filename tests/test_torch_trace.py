@@ -293,14 +293,16 @@ def test_make_tracer_dispatch_and_device_rules(soup):
     scene = {"tri_pos": _t(soup["tri"])}
     o, d = (_t(x) for x in _rays(256))
     brute = bruteforce_closest_hit(o, d, scene["tri_pos"])
-    for cfg in (RenderConfig(), RenderConfig(bruteforce_max_tris=100), RenderConfig(tracer="bruteforce")):
+    # "bvh" walks the tables as "pallas" does, even below bruteforce_max_tris.
+    for cfg in (RenderConfig(), RenderConfig(bruteforce_max_tris=100), RenderConfig(tracer="bruteforce"),
+                RenderConfig(tracer="bvh")):
         closest, any_hit = make_tracer(scene, soup["tables"], cfg, device="cpu")
         _assert_hits(closest(o, d), brute)
         hit, occ = closest.combo(o, d, d, torch.full((256,), float("inf")), 0.5)
         _assert_hits(hit, brute)
         np.testing.assert_array_equal(occ.numpy(), bruteforce_any_hit(o, d, scene["tri_pos"], 0.5).numpy())
-    with pytest.raises(NotImplementedError):
-        make_tracer(scene, soup["tables"], RenderConfig(tracer="bvh"), device="cpu")
+    with pytest.raises(ValueError, match="bvh"):
+        make_tracer(scene, None, RenderConfig(tracer="bvh"), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             make_tracer(scene, soup["tables"], RenderConfig())
