@@ -99,7 +99,26 @@ Phases (any failure raises and exits non-zero):
               with --nrc; a --bvh-wide 2 frame (K7) and a --tracer bvh
               frame (equal to --tracer pallas); 64x64 app frames on the GPU
               against --device cpu, with GI and with --no-gi
- 12. summary  one {"kernels": [...]} line, then the device line last
+ 12. dist     nebulae_tpu_torch.dist on the one card: 2 ranks (this script
+              with --dist-worker, gloo with host staging) on the bench
+              scene at 1920x1080, 4 bounces, SVGF, ACES: 3 warm-up and 5
+              timed frames, still and orbiting, each gathered frame held to
+              the single-process frame (byte for byte, or the max error of
+              hdr, denoised and ldr logged), each frame's collectives by op
+              (bytes on the rank and sent, host ms) from comm's log, one
+              frame profiled (its c10d ops counted against the log), K1-K4
+              held on each launch of rank 0's frame; 1 warm-up and 3 timed
+              2-rank train steps, K5 held on each launch of rank 0's next
+              step, the summed gradients against one process's (cosine >=
+              0.9999); a 2-rank NRC frame (caches equal by digest, the
+              frame within the NRC tolerance); a bvh_wide=2 frame (K7a-c
+              held on rank 0's launches) and a 247k subtree frame; a 1-rank
+              NCCL world at 1080p (still and orbiting frames against the
+              single ones, the collectives' host ms and device ms) and
+              running the dry run (nebulae_tpu_torch.dist.dryrun); the app
+              as 2 processes at its defaults, 8 frames checkpointed after 4
+              and 4 resumed (byte for byte), against 1 process
+ 13. summary  one {"kernels": [...]} line, then the device line last
 Each phase logs its seconds; each profile lists every launch of a port
 kernel with its grid, block, registers and time.  Imports nothing of JAX or
 of the JAX package.
@@ -1529,19 +1548,24 @@ def options_phase(base_cfg, fs, bvh) -> dict:
     return counts
 
 
-def hold_fat4_launches(what, tables, k1s, k2s, k3s) -> None:
-    """K1, K2 and K3 held against their plain versions on each recorded
-    launch of a frame (over `tables`), max error 0; logs each launch and
-    each kernel's sums."""
+def hold_walk_launches(what, tables, k1s, k2s, k3s, table="fat4") -> None:
+    """The closest, fused and any walks over `table` ("fat4": K1, K2, K3;
+    "fat": K7a, K7b, K7c) held against their plain versions on each
+    recorded launch of a frame (over `tables`), max error 0; logs each
+    launch and each kernel's sums."""
     from nebulae_tpu_torch.kernels import trace as kt
 
+    tags = ("K1", "K2", "K3") if table == "fat4" else ("K7a", "K7b", "K7c")
+    closest, combo, any_ = (getattr(kt, f"{w}_{table}") for w in ("closest_hit", "shadow_closest", "any_hit"))
+    closest_p, combo_p, any_p = (getattr(kt, f"{w}_{table}_plain")
+                                 for w in ("closest_hit", "shadow_closest", "any_hit"))
     for tag, launches_, hold, n_caps, kernel, plain in (
-            ("K1", k1s, hold_closest, 1, lambda a, b, t: kt.closest_hit_fat4(a, b, tables, t),
-             lambda a, b, t, w: kt.closest_hit_fat4_plain(a, b, tables, t, work=w)),
-            ("K2", k2s, hold_combo, 2, lambda a, b, l_, tb, tl: kt.shadow_closest_fat4(a, b, l_, tables, tb, tl),
-             lambda a, b, l_, tb, tl, w: kt.shadow_closest_fat4_plain(a, b, l_, tables, tb, tl, work=w)),
-            ("K3", k3s, hold_any, 1, lambda a, b, t: kt.any_hit_fat4(a, b, tables, t),
-             lambda a, b, t, w: kt.any_hit_fat4_plain(a, b, tables, t, work=w))):
+            (tags[0], k1s, hold_closest, 1, lambda a, b, t: closest(a, b, tables, t),
+             lambda a, b, t, w: closest_p(a, b, tables, t, work=w)),
+            (tags[1], k2s, hold_combo, 2, lambda a, b, l_, tb, tl: combo(a, b, l_, tables, tb, tl),
+             lambda a, b, l_, tb, tl, w: combo_p(a, b, l_, tables, tb, tl, work=w)),
+            (tags[2], k3s, hold_any, 1, lambda a, b, t: any_(a, b, tables, t),
+             lambda a, b, t, w: any_p(a, b, tables, t, work=w))):
         h = Held()
         for i, args in enumerate(launches_):
             ms = h.ms
@@ -1741,7 +1765,7 @@ def nrc_phase(base_cfg, fs, bvh) -> None:
     # K1, K2 and K3 on each of their launches in one NRC frame.
     k1s, k2s, k3s = recorded_launches(lambda: r.render(cam_obj), kt.closest_hit_fat4, kt.shadow_closest_fat4,
                                       kt.any_hit_fat4)
-    hold_fat4_launches("nrc frame", r.tables, k1s, k2s, k3s)
+    hold_walk_launches("nrc frame", r.tables, k1s, k2s, k3s)
     del k1s, k2s, k3s
     mlp_forms(r, cam_obj)
     cam = make_camera_arrays(cam_obj, WIDTH, HEIGHT, r.device)
@@ -1958,7 +1982,7 @@ def _app_phase(smi: str, tmp: Path) -> dict:
         held["r"] = app.run(common + ["--frames", "1", "--out", str(tmp / "held")])
 
     k1s, k2s, k3s = recorded_launches(record, kt.closest_hit_fat4, kt.shadow_closest_fat4, kt.any_hit_fat4)
-    hold_fat4_launches("app frame", held.pop("r").tables, k1s, k2s, k3s)
+    hold_walk_launches("app frame", held.pop("r").tables, k1s, k2s, k3s)
     res["held_launches"] = [len(k1s), len(k2s), len(k3s)]
     del k1s, k2s, k3s
 
@@ -2023,6 +2047,505 @@ def _app_phase(smi: str, tmp: Path) -> dict:
             f"difference] {shares}")
     assert n["any_fat4"] + kt.any_hit_fat4.launches - k3 > 0, "K3 launched on no app frame"
     log(f"app: {json.dumps({k: v for k, v in res.items() if k != 'device'})} ({smi})")
+    return res
+
+
+# Phase 12: distribution.  Two ranks on the one card, each a process of
+# this script (--dist-worker), over gloo with host staging (one GPU for two
+# ranks: NCCL refuses a device twice); then a world of one over NCCL.  The
+# worker holds kernels with this script's hold_* helpers, so it lives here;
+# it starts and ends through nebulae_tpu_torch.dist.dryrun's spawn and join.
+DIST_RANKS, DIST_WARM, DIST_TIMED, DIST_STEPS = 2, 3, 5, 3
+DIST_TIMEOUT = 300
+DIST_PARTS = ("still", "hold", "orbit", "step", "nrc", "fat2", "large")
+
+
+def _dist_setup(world, fs, bvh, **options):
+    """The bench configuration (lean outputs off, so the frame's hdr and
+    denoised buffers can be compared too) on a DistRenderer of `world`."""
+    from nebulae_tpu_torch.config import RenderConfig
+    from nebulae_tpu_torch.dist.runner import DistRenderer
+
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=SPP, max_bounces=BOUNCES, enable_svgf=True,
+                       enable_tonemap=True, **options)
+    if world is None:
+        from nebulae_tpu_torch.engine.renderer import Renderer
+
+        return cfg, Renderer(fs, cfg, bvh=bvh)
+    return cfg, DistRenderer(fs, cfg, world, bvh=bvh)
+
+
+def _dist_frames(world, r, cams, n_warm, what):
+    """n_warm + the rest of `cams` as frames; the timed frames' ms and each
+    one's collectives (comm's log).  Returns (last outputs, times, stats)."""
+    import torch
+
+    from nebulae_tpu_torch.dist.stats import collective_stats
+
+    times, stats = [], []
+    for i, cam in enumerate(cams):
+        n0 = len(world.log) if world is not None else 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = r.render(cam)
+        torch.cuda.synchronize()
+        if i >= n_warm:
+            times.append((time.perf_counter() - t0) * 1e3)
+            if world is not None:
+                stats.append(collective_stats(list(world.log)[n0:]))
+    log(f"{what}: frames {[round(t, 2) for t in times]} ms, mean {statistics.mean(times):.2f}")
+    return out, times, stats
+
+
+def _mean_stats(stats) -> dict:
+    """Per-frame means of collective_stats by op: count, bytes of the
+    results on the rank, bytes the rank sent, host ms."""
+    fields = ("count", "bytes", "sent", "ms")
+    ops = sorted({k for s in stats for k in s if not k.startswith("total")})
+    out = {op: {f: statistics.mean(s.get(op, {}).get(f, 0) for s in stats) for f in fields} for op in ops}
+    out["tags"] = {}
+    for s in stats:
+        for op in ops:
+            for tag, b in s.get(op, {}).get("tags", {}).items():
+                out["tags"][tag] = out["tags"].get(tag, 0) + b / len(stats)
+    for f in ("bytes", "sent", "ms"):
+        out[f"total_{f}"] = statistics.mean(s[f"total_{f}"] for s in stats)
+    return out
+
+
+def _gathered(world, out) -> dict:
+    """The frame's image outputs gathered from every rank, on the host."""
+    import torch
+
+    from nebulae_tpu_torch.dist.runner import present_gather
+
+    return {k: present_gather(world, out[k].to(torch.uint8) if k == "hit" else out[k]).cpu()
+            for k in ("hdr", "denoised", "ldr", "hit")}
+
+
+def _spy(module, name: str):
+    """Record the inputs of each call of module.name while installed;
+    returns (records, uninstall).  A wrapper counts its launches on
+    whatever its module's name holds, so the spy carries the count and
+    hands what it gained back to the wrapper."""
+    real, recs = getattr(module, name), []
+
+    def spy(*args):
+        recs.append(tuple(a.detach().clone() if hasattr(a, "detach") else a for a in args))
+        return real(*args)
+
+    spy.launches = start = real.launches
+    setattr(module, name, spy)
+
+    def uninstall():
+        setattr(module, name, real)
+        real.launches += spy.launches - start
+
+    return recs, uninstall
+
+
+def _hold_exact(what, kernel, plain, recs) -> float:
+    """kernel(*a) against plain(*a) on each record, every output at max
+    error 0; logs the launches' shapes.  Returns the max error."""
+    err = 0.0
+    for a in recs:
+        ks, ps = kernel(*a), plain(*a)
+        for k, p in zip(ks if isinstance(ks, tuple) else (ks,), ps if isinstance(ps, tuple) else (ps,),
+                        strict=True):
+            err = max(err, float((k - p).abs().max()))
+    assert err == 0.0, f"{what}: max error {err}"
+    log(f"{what}: {len(recs)} launches on {[tuple(a[0].shape) for a in recs]} "
+        f"(the rank's rows and their halo), max err {err:.3g}")
+    return err
+
+
+def _collective_device_ms(events) -> float:
+    """Device ms (union of spans) of the work that c10d ops launched: the
+    device events whose launch, by correlation, lies in a c10d:: op's host
+    span."""
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("name", "").startswith("c10d::") and "dur" in e]
+    corr = {e["args"]["correlation"] for e in events
+            if (e.get("cat") or "").startswith("cuda_") and "correlation" in e.get("args", {})
+            and any(a <= e["ts"] <= b for a, b in spans)}
+    return _union_ms((e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e.get("cat") in DEVICE_CATS and "dur" in e and e.get("args", {}).get("correlation") in corr)
+
+
+def dist_worker(argv) -> int:
+    """One rank of phase 12 on the bench scene at 1080p through a
+    DistRenderer, the parts of DIST_PARTS that --parts names: still frames
+    (one profiled), K1-K4 held on each launch of rank 0's frame, orbiting
+    frames, train steps (K5 held on each launch of rank 0's step), an NRC
+    frame, a bvh_wide=2 frame (K7a-c held on rank 0's launches) and a
+    frame of the 247k scene on the subtree route.  Rank 0 saves the
+    gathered frames, the summed gradients and a JSON summary to --out."""
+    import argparse
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nebulae_tpu_torch.bvh.cbuilder import build_bvh_native
+    from nebulae_tpu_torch.dist.dryrun import cameras, step_inputs
+    from nebulae_tpu_torch.dist.mesh import init_distributed
+    from nebulae_tpu_torch.dist.runner import replicas_equal
+    from nebulae_tpu_torch.dist.stats import collective_stats
+    from nebulae_tpu_torch.engine.train import flatten_params, loss_and_grads, make_train_step
+    from nebulae_tpu_torch.kernels import svgf as ksvgf
+    from nebulae_tpu_torch.kernels import trace as kt
+    from nebulae_tpu_torch.passes import svgf as psvgf
+    from nebulae_tpu_torch.utils.testscenes import bench_camera, bench_scene, large_scene
+
+    p = argparse.ArgumentParser("chip_smoke.py --dist-worker")
+    p.add_argument("--rank", type=int, required=True)
+    p.add_argument("--world-size", type=int, required=True)
+    p.add_argument("--init-method", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--parts", default=",".join(DIST_PARTS))
+    args = p.parse_args(argv)
+    parts = args.parts.split(",")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = init_distributed(None, args.world_size, args.rank, device="cuda", init_method=args.init_method,
+                             timeout_s=DIST_TIMEOUT)
+    lead = world.rank == 0
+    tag = f"dist {world.backend} rank {world.rank} of {world.size}"
+    res, saved = {"rank": world.rank, "backend": world.backend}, {}
+    try:
+        t0 = time.perf_counter()
+        fs = bench_scene(seed=0)
+        bvh = build_bvh_native(fs.tri_pos, max_leaf=15)
+        cfg, r = _dist_setup(world, fs, bvh)
+        res["setup_s"] = time.perf_counter() - t0
+        still = [bench_camera(fs)] * (DIST_WARM + DIST_TIMED)
+        fat4 = {"closest_fat4": kt.closest_hit_fat4, "shadow_closest_fat4": kt.shadow_closest_fat4,
+                "any_fat4": kt.any_hit_fat4, "atrous_fwd": ksvgf.atrous_step}
+        _zero(fat4)
+        out, times, stats = _dist_frames(world, r, still, DIST_WARM, f"{tag} still")
+        res["still"] = {"ms": times, "collectives": _mean_stats(stats),
+                        "launches": {k: f.launches / len(still) for k, f in fat4.items()}}
+        missing = [k for k, f in fat4.items() if f.launches == 0]
+        assert not missing, f"kernels not launched on {tag}'s frames: {missing}"
+        saved["still"] = _gathered(world, out)
+
+        # One still frame under the profiler: device busy, the collectives'
+        # device work (NCCL's; gloo's runs on the host, its staging copies
+        # outside the c10d ops), and the c10d ops the profiler saw against
+        # comm's log.
+        n0 = len(world.log)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            r.render(still[0])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - w0) * 1e3
+        events = _trace_events(prof)
+        c10d = sorted(e["name"] for e in events if e.get("name", "").startswith("c10d::"))
+        logged = sorted(e["op"] for e in list(world.log)[n0:])
+        coll_ms = _collective_device_ms(events)
+        rep = profile_report(events, FAT4_KERNELS, statistics.mean(times), wall, what=f"{tag} still frame")
+        res["profile"] = {"busy_ms": rep["busy_ms"], "wall_ms": wall, "phases": rep["phases"],
+                          "collective_device_ms": coll_ms, "c10d_events": len(c10d), "logged": len(logged),
+                          "c10d_names": sorted(set(c10d))}
+        log(f"{tag} profiled still frame: busy {rep['busy_ms']:.2f} ms, collectives' device work {coll_ms:.4f} ms, "
+            f"c10d ops {len(c10d)}, logged {len(logged)}")
+        assert len(c10d) == len(logged), f"profiler saw {c10d}, comm logged {logged}"
+
+        if "hold" in parts:
+            # K1-K4 on each launch of this rank's frame, held against their
+            # plain versions (max error 0); every rank renders, rank 0 holds.
+            k4s, uninstall = _spy(psvgf, "atrous_step")
+            try:
+                k1s, k2s, k3s = recorded_launches(lambda: r.render(still[0]), kt.closest_hit_fat4,
+                                                  kt.shadow_closest_fat4, kt.any_hit_fat4)
+            finally:
+                uninstall()
+            if lead:
+                hold_walk_launches("rank 0 frame", r.tables, k1s, k2s, k3s)
+                _hold_exact("K4 on rank 0's frame", ksvgf.atrous_step, ksvgf.atrous_step_plain, k4s)
+                res["held"] = [len(k1s), len(k2s), len(k3s), len(k4s)]
+            del k1s, k2s, k3s, k4s
+
+        if "orbit" in parts:
+            # Orbiting frames: the history is reprojected, gathered whole.
+            _, r_orbit = _dist_setup(world, fs, bvh)
+            out, times, stats = _dist_frames(world, r_orbit, cameras(fs, DIST_WARM + DIST_TIMED, 0.5), DIST_WARM,
+                                             f"{tag} orbit")
+            res["orbit"] = {"ms": times, "collectives": _mean_stats(stats)}
+            saved["orbit"] = _gathered(world, out)
+            del r_orbit
+
+        if "step" in parts:
+            # Train steps: params fixed, the state threaded; a further step
+            # records K5's inputs (untimed: the records are copies), held on
+            # rank 0; then the summed loss and gradients from a fresh state,
+            # for the single step.
+            params, frozen, cam, state, target = step_inputs(r, cfg, still[0], world)
+            step, opt = make_train_step(cfg, frozen, r.tables, device=world.device, world=world)
+            opt_state = opt.init(params)
+            times, stats = [], []
+            ksvgf.atrous_step_bwd.launches = 0
+            for i in range(1 + DIST_STEPS):
+                n0 = len(world.log)
+                torch.cuda.synchronize()
+                s0 = time.perf_counter()
+                new_params, new_opt, state, loss, _ = step(params, opt_state, cam, state, target)
+                float(loss)
+                if i:
+                    times.append((time.perf_counter() - s0) * 1e3)
+                    stats.append(collective_stats(list(world.log)[n0:]))
+            n_k5 = ksvgf.atrous_step_bwd.launches
+            assert replicas_equal(world, (flatten_params(new_params), new_opt)), "params differ between ranks"
+            assert n_k5 == 4 * (1 + DIST_STEPS), f"K5 launched {n_k5} times on the 2-rank steps"
+            log(f"{tag} train: steps {[round(t, 2) for t in times]} ms, loss {float(loss):.6f}, K5 {n_k5} launches")
+            res["step"] = {"ms": times, "collectives": _mean_stats(stats), "k5_launches": n_k5}
+            k5s, uninstall = _spy(ksvgf, "atrous_step_bwd")
+            try:
+                float(step(params, opt_state, cam, state, target)[3])
+            finally:
+                uninstall()
+            assert len(k5s) == 4, f"K5 launched {len(k5s)} times on the recorded step"
+            if lead:
+                _hold_exact("K5 on rank 0's step", ksvgf.atrous_step_bwd, ksvgf.atrous_step_bwd_plain, k5s)
+                res["held"] = res.get("held", []) + [len(k5s)]
+            del k5s
+            p0, f0, c0, s0_, t0_ = step_inputs(r, cfg, still[0], world)
+            loss, grads, _, _ = loss_and_grads(p0, f0, r.tables, c0, s0_, t0_, cfg, device=world.device,
+                                               world=world)
+            saved["loss"], saved["grads"] = loss.cpu(), [g.cpu() for g in grads]
+            del step, opt, state, params, opt_state, new_params, new_opt
+
+        if "nrc" in parts:
+            # The radiance cache: every rank trains it; DistRenderer.render
+            # holds the caches equal by digest.
+            _, r_nrc = _dist_setup(world, fs, bvh, enable_nrc=True)
+            out, times, _ = _dist_frames(world, r_nrc, [still[0]] * 2, 1, f"{tag} nrc")
+            res["nrc"] = {"ms": times, "query_frac": float(out["nrc_query_frac"])}
+            saved["nrc"] = _gathered(world, out)
+            del r_nrc
+
+        if "fat2" in parts:
+            # bvh_wide=2 (K7): one timed frame, then K7a-c on each launch of
+            # a second one, held on rank 0.
+            fat2 = {"closest_fat": kt.closest_hit_fat, "shadow_closest_fat": kt.shadow_closest_fat,
+                    "any_fat": kt.any_hit_fat}
+            _zero(fat2)
+            _, r2 = _dist_setup(world, fs, bvh, bvh_wide=2)
+            out, times, _ = _dist_frames(world, r2, [still[0]], 0, f"{tag} bvh_wide=2")
+            res["fat2"] = {"ms": times, "launches": {k: f.launches for k, f in fat2.items()}}
+            assert fat2["closest_fat"].launches == 1 and fat2["shadow_closest_fat"].launches >= 1, res["fat2"]
+            saved["fat2"] = _gathered(world, out)
+            k7s = recorded_launches(lambda: r2.render(still[0]), kt.closest_hit_fat, kt.shadow_closest_fat,
+                                    kt.any_hit_fat)
+            if lead:
+                hold_walk_launches("rank 0 bvh_wide=2 frame", r2.tables, *k7s, table="fat")
+                res["held_fat2"] = [len(k) for k in k7s]
+            del r2, k7s
+
+        if "large" in parts:
+            lf = large_scene(seed=0)
+            _, r3 = _dist_setup(world, lf, build_bvh_native(lf.tri_pos, max_leaf=15), chunk_mode="subtree")
+            out, times, _ = _dist_frames(world, r3, [bench_camera(lf)], 0, f"{tag} 247k {r3.route}")
+            res["large"] = {"ms": times, "route": r3.route}
+            saved["large"] = _gathered(world, out)
+        if lead:
+            torch.save(saved, Path(args.out) / "rank0.pt")
+            (Path(args.out) / "rank0.json").write_text(json.dumps(res))
+    finally:
+        world.close()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _same_frame(what, got, ref) -> dict:
+    """A gathered 2-rank frame against the single-process frame: the hit
+    mask equal and >= 99% of pixels within rtol 1e-3 / atol 1e-4; logs
+    whether it is equal byte for byte and, if not, the max error of each
+    buffer (hdr before SVGF, denoised after, ldr after ACES), which says
+    which stage first differs."""
+    import torch
+
+    errs = {k: float((got[k].float() - ref[k].float()).abs().max()) for k in ("hdr", "denoised", "ldr", "hit")}
+    assert errs["hit"] == 0.0, f"{what}: hit mask differs from the single process's"
+    close = float(torch.isclose(got["ldr"], ref["ldr"], rtol=1e-3, atol=1e-4).all(-1).float().mean())
+    assert close >= 0.99, f"{what}: {close:.4f} of pixels within rtol 1e-3 / atol 1e-4"
+    first = next((k for k in ("hdr", "denoised", "ldr") if errs[k] > 0), None)
+    log(f"{what}: " + ("equal to the single-process frame byte for byte" if first is None else
+                       f"not equal: max error {json.dumps(errs)}; first differs in {first}; {close:.6f} of "
+                       "pixels within rtol 1e-3 / atol 1e-4"))
+    return {"exact": first is None, "max_err": errs, "close": close}
+
+
+def _coll(c) -> str:
+    """One frame's or step's collectives, short: by op count, bytes of
+    the results on the rank, bytes sent, host ms."""
+    return "; ".join(f"{op} x{v['count']:g}: {v['bytes']:,.0f} B on the rank, {v['sent']:,.0f} B sent, "
+                     f"{v['ms']:.2f} ms" for op, v in c.items() if isinstance(v, dict) and "count" in v)
+
+
+def dist_phase(smi: str) -> dict:
+    """Phase 12: the port's distribution on the card.  The single-process
+    references first, in this process; then 2 ranks (this script with
+    --dist-worker) on the bench scene at 1080p; a 1-rank NCCL world at
+    1080p (still and orbiting frames) and the 1-rank NCCL dry run
+    (nebulae_tpu_torch.dist.dryrun); and the app as 2 processes,
+    checkpointed after 4 of 8 frames and resumed, against 1 process."""
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            return _dist_phase(smi, Path(tmp))
+        finally:
+            torch.cuda.empty_cache()
+
+
+def _dist_phase(smi: str, tmp: Path) -> dict:
+    import numpy as np
+    import torch
+
+    from nebulae_tpu_torch.bvh.cbuilder import build_bvh_native
+    from nebulae_tpu_torch.dist.dryrun import cameras, join, spawn, start, step_inputs
+    from nebulae_tpu_torch.engine.train import loss_and_grads
+    from nebulae_tpu_torch.utils.png import read_png
+    from nebulae_tpu_torch.utils.testscenes import bench_camera, bench_scene, large_scene, write_gltf
+
+    res = {"device": smi}
+    # The single-process references, from the same BVH build (the C++
+    # builder is deterministic) and the same camera sequences.
+    fs = bench_scene(seed=0)
+    bvh = build_bvh_native(fs.tri_pos, max_leaf=15)
+    cfg, r = _dist_setup(None, fs, bvh)
+    still = [bench_camera(fs)] * (DIST_WARM + DIST_TIMED)
+    out, times, _ = _dist_frames(None, r, still, DIST_WARM, "single still (reference)")
+    ref = {"still": {k: out[k].cpu() for k in ("hdr", "denoised", "ldr", "hit")}}
+    res["single_still_ms"] = times
+    _, ro = _dist_setup(None, fs, bvh)
+    out, times, _ = _dist_frames(None, ro, cameras(fs, DIST_WARM + DIST_TIMED, 0.5), DIST_WARM,
+                                 "single orbit (reference)")
+    ref["orbit"] = {k: out[k].cpu() for k in ("hdr", "denoised", "ldr", "hit")}
+    res["single_orbit_ms"] = times
+    p0, f0, c0, s0, t0 = step_inputs(r, cfg, still[0], None)
+    loss, grads, _, _ = loss_and_grads(p0, f0, r.tables, c0, s0, t0, cfg, device=r.device)
+    ref["loss"], ref["grads"] = loss.cpu(), [g.cpu() for g in grads]
+    for tag, options, scene, b in (("nrc", {"enable_nrc": True}, fs, bvh), ("fat2", {"bvh_wide": 2}, fs, bvh)):
+        _, rr = _dist_setup(None, scene, b, **options)
+        o = rr.render(still[0])
+        if tag == "nrc":  # the ranks' second NRC frame
+            o = rr.render(still[0])
+        ref[tag] = {k: o[k].cpu() for k in ("hdr", "denoised", "ldr", "hit")}
+    lf = large_scene(seed=0)
+    _, rl = _dist_setup(None, lf, build_bvh_native(lf.tri_pos, max_leaf=15), chunk_mode="subtree")
+    o = rl.render(bench_camera(lf))
+    ref["large"] = {k: o[k].cpu() for k in ("hdr", "denoised", "ldr", "hit")}
+    del r, ro, rr, rl, out, o, p0, f0, c0, s0, t0, grads
+    torch.cuda.empty_cache()
+    worker = [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-worker"]
+
+    def ranks(n, out, what, init_method, *extra):
+        (tmp / out).mkdir()
+        t_start = time.perf_counter()
+        texts = join(spawn(n, ["--out", str(tmp / out), *extra], init_method, cmd=worker), DIST_TIMEOUT)
+        for rank, text in enumerate(texts):
+            for line in text.splitlines():
+                log(f"[{what} rank {rank}] {line}")
+        return (time.perf_counter() - t_start, torch.load(tmp / out / "rank0.pt", weights_only=True),
+                json.loads((tmp / out / "rank0.json").read_text()))
+
+    # Two ranks on the card.
+    res["ranks_s"], got, w = ranks(DIST_RANKS, "gloo", "gloo", (tmp / "store").as_uri())
+    assert w["backend"] == "gloo", w["backend"]
+    res["ranks"] = w
+    for tag in ("still", "orbit", "fat2", "large"):
+        res[f"{tag}_vs_single"] = _same_frame(f"dist {tag} frame (2 ranks, {smi})", got[tag], ref[tag])
+    # The NRC frame within the NRC tolerance (PERF.md section 2): on the
+    # card each rank's cache MLP multiplies its own rows, another M.
+    nrc_close = float(torch.isclose(got["nrc"]["ldr"], ref["nrc"]["ldr"], rtol=1e-2, atol=1e-3)
+                      .all(-1).float().mean())
+    assert nrc_close >= 0.99, f"dist NRC frame: {nrc_close:.4f} of pixels within rtol 1e-2 / atol 1e-3"
+    res["nrc_vs_single"] = {"close": nrc_close, "max_err": float((got["nrc"]["ldr"] - ref["nrc"]["ldr"]).abs().max())}
+    rel = abs(float(got["loss"]) - float(ref["loss"])) / abs(float(ref["loss"]))
+    cos = []
+    for a, b in zip(got["grads"], ref["grads"]):
+        a, b = a.double().reshape(-1), b.double().reshape(-1)
+        cos.append(1.0 if float(b.norm()) == 0.0 and float(a.norm()) == 0.0 else
+                   float(a @ b / (a.norm() * b.norm())))
+    assert rel <= 1e-5 and min(cos) >= 0.9999, f"dist gradients: loss rel {rel:.3g}, cosines {cos}"
+    res["grads_vs_single"] = {"loss_rel": rel, "cosines": cos}
+    med = statistics.median
+    log(f"dist summary ({smi}): medians single still {med(res['single_still_ms']):.2f} ms, 2-rank still "
+        f"{med(w['still']['ms']):.2f} ms (rank 0 busy {w['profile']['busy_ms']:.2f} ms), orbit "
+        f"{med(res['single_orbit_ms']):.2f} -> {med(w['orbit']['ms']):.2f} ms, 2-rank step "
+        f"{med(w['step']['ms']):.2f} ms, NRC {med(w['nrc']['ms']):.2f} ms; collectives a still frame "
+        f"{_coll(w['still']['collectives'])}; an orbiting frame {_coll(w['orbit']['collectives'])}; a step "
+        f"{_coll(w['step']['collectives'])}; by tag (bytes on the rank) still "
+        f"{json.dumps(w['still']['collectives']['tags'])}, step {json.dumps(w['step']['collectives']['tags'])}; "
+        f"gradients against one process: loss rel {rel:.3g}, min cosine {min(cos):.8f}; NRC frame "
+        f"{nrc_close:.6f} of pixels within rtol 1e-2 / atol 1e-3, max error "
+        f"{res['nrc_vs_single']['max_err']:.3g}; K1-K5 held on rank 0's launches {w['held']}, K7a-c on its "
+        f"bvh_wide=2 frame {w['held_fat2']}; launches a rank-frame {json.dumps(w['still']['launches'])}, on the "
+        f"bvh_wide=2 frame {json.dumps(w['fat2']['launches'])}, 247k route {w['large']['route']}; profiler c10d "
+        f"ops {w['profile']['c10d_events']} = comm log {w['profile']['logged']}")
+
+    # A world of one on NCCL at 1080p: still and orbiting frames through
+    # DistRenderer against the single frames, collectives on the device.
+    res["nccl_s"], got, w = ranks(1, "nccl", "nccl", f"tcp://127.0.0.1:{_free_port()}", "--parts", "still,orbit")
+    assert w["backend"] == "nccl", w["backend"]
+    res["nccl"] = w
+    for tag in ("still", "orbit"):
+        res[f"nccl_{tag}_vs_single"] = _same_frame(f"dist NCCL world of one, {tag} frame ({smi})", got[tag],
+                                                   ref[tag])
+    log(f"dist NCCL world of one ({res['nccl_s']:.1f} s, {smi}): medians still {med(w['still']['ms']):.2f} ms "
+        f"(single {med(res['single_still_ms']):.2f}), orbit {med(w['orbit']['ms']):.2f} ms (single "
+        f"{med(res['single_orbit_ms']):.2f}); busy {w['profile']['busy_ms']:.2f} ms, of it the collectives' "
+        f"device work {w['profile']['collective_device_ms']:.4f} ms in the profiled still frame; collectives a "
+        f"still frame {_coll(w['still']['collectives'])}; an orbiting frame {_coll(w['orbit']['collectives'])} "
+        f"(host ms: NCCL's calls enqueue on the stream and return)")
+
+    # The dry run (an NRC frame, the sharded frame against one process, a
+    # train step) through DistRenderer on NCCL, as dryrun_multichip.
+    t_start = time.perf_counter()
+    (text,) = join(start([[sys.executable, "-m", "nebulae_tpu_torch.dist.dryrun", "--rank", "0", "--world-size",
+                           "1", "--coordinator", f"127.0.0.1:{_free_port()}", "--dryrun"]]), DIST_TIMEOUT)
+    assert "backend nccl" in text and "dryrun(1): loss=" in text, text
+    res["dryrun_s"] = time.perf_counter() - t_start
+    log(f"dist NCCL dry run ({res['dryrun_s']:.1f} s): " + " | ".join(
+        x.strip() for x in text.splitlines() if "backend" in x or "dryrun(" in x))
+
+    # The app as 2 processes: 8 frames checkpointed after 4, against 1
+    # process, then 4 frames resumed from the checkpoint.
+    t_start = time.perf_counter()
+    glb = write_gltf(tmp / "bench.glb", fs)
+    app = [sys.executable, "-m", "nebulae_tpu_torch.app", "--scene", str(glb), "--crash-dir", str(tmp / "crash")]
+
+    def apps(out, *extra):
+        port = _free_port()
+        return [app + ["--out", str(tmp / out), "--num-processes", "2", "--process-id", str(i), "--coordinator",
+                       f"127.0.0.1:{port}", *extra] for i in range(2)]
+
+    ck = tmp / "app_ck"
+    join(start(apps("app_a", "--frames", "8", "--checkpoint-dir", str(ck), "--checkpoint-every", "4")
+               + [app + ["--out", str(tmp / "app_one"), "--frames", "8"]]), DIST_TIMEOUT)
+    join(start(apps("app_b", "--frames", "4", "--resume", str(ck / "step_00000004"))), DIST_TIMEOUT)
+    fa, fb, f1 = ([read_png(p) for p in sorted((tmp / d).glob("frame_*.png"))] for d in ("app_a", "app_b", "app_one"))
+    assert len(fa) == 8 and len(fb) == 4 and len(f1) == 8
+    for i in range(4):
+        assert np.array_equal(fa[4 + i], fb[i]), f"app resume: frame {i} differs from frame {4 + i}"
+    same = [bool(np.array_equal(a, b)) for a, b in zip(fa, f1)]
+    if not all(same):
+        res["app_vs_one"] = [_u8_close(a, b, f"2-process app frame {i}") for i, (a, b) in enumerate(zip(fa, f1))]
+    res["app_s"] = time.perf_counter() - t_start
+    ms = [json.loads(x)["frame_ms"] for x in (tmp / "app_a" / "metrics.jsonl").read_text().splitlines()]
+    log(f"dist app ({res['app_s']:.1f} s, {smi}): 2 processes at 1080p, 8 bounces: frames 5-8 equal the 4 resumed "
+        f"frames byte for byte; equal to the 1-process frames byte for byte: {same}; rank 0 frame_ms "
+        f"{[round(t, 2) for t in ms]}; rank 1 wrote {sorted(p.name for p in (tmp / 'app_a').glob('*.r1*'))}")
     return res
 
 
@@ -2467,6 +2990,8 @@ def main() -> int:
         print(json.dumps(ab_child(argv[1], argv[2], int(argv[3]))), flush=True)
         return 0
     sys.path.insert(0, str(ROOT))
+    if argv[:1] == ["--dist-worker"]:
+        return dist_worker(argv[1:])
     if argv[:1] == ["--ab-capture"]:
         ab_capture(argv[1])
         return 0
@@ -2787,7 +3312,11 @@ def main() -> int:
     app_phase(smi)
     clock.done("app")
 
-    # 12. summary
+    # 12. dist: row-sharded frames, train steps, NRC and the app over ranks
+    dist_phase(smi)
+    clock.done("dist")
+
+    # 13. summary
     sources = {
         "closest_fat4": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1202"),
         "shadow_closest_fat4": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1415"),

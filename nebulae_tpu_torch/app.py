@@ -11,8 +11,13 @@ Usage:
     python -m nebulae_tpu_torch.app --scene /path/to/scene.gltf --frames 64 \
         --width 1920 --height 1080 --nrc --out /tmp/frames
 
-Multi-process and mesh runs (`--coordinator`, `--num-processes` > 1,
-`--mesh`) are not ported yet and raise NotImplementedError.
+Multi-process runs (`--num-processes N --process-id R --coordinator
+host:port`, one command per rank) render row-sharded frames through
+dist.runner.DistRenderer; rank 0 presents the gathered image and writes the
+checkpoints, and rank R > 0 writes metrics.rR.jsonl and heartbeat.rR.
+`--mesh` alone is a world of one through the same path.  A `--coordinator`
+without `--num-processes` above 1 runs the single-process path, as JAX's
+app does.
 """
 
 from __future__ import annotations
@@ -24,10 +29,6 @@ import time
 from pathlib import Path
 
 import numpy as np
-
-DIST_NOT_PORTED = ("multi-process and mesh runs (--coordinator, --num-processes > 1, --mesh) are not "
-                   "ported (ROADMAP Queue 1, item 12)")
-
 
 def build_arg_parser() -> argparse.ArgumentParser:
     """JAX's app flags, names and defaults, and --device."""
@@ -97,10 +98,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="crash-dump directory (default $NEBULAE_CRASH_DIR or /tmp/nebulae_crash)")
     p.add_argument("--heartbeat", default=None,
                    help="liveness file touched every frame (default <out>/heartbeat)")
-    p.add_argument("--coordinator", default=None, help="multi-process runs: not ported")
-    p.add_argument("--num-processes", type=int, default=1, help="multi-process runs: not ported above 1")
-    p.add_argument("--process-id", type=int, default=None, help="multi-process runs: not ported")
-    p.add_argument("--mesh", action="store_true", help="mesh runs: not ported")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0's rendezvous (multi-process runs)")
+    p.add_argument("--num-processes", type=int, default=1,
+                   help="total processes in the multi-process run (1 = single process)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank in the multi-process run")
+    p.add_argument("--mesh", action="store_true",
+                   help="render through the row-sharded path (implied by --num-processes > 1); "
+                        "height must divide the number of processes")
     return p
 
 
@@ -167,27 +173,43 @@ def _env_map(spec: str) -> np.ndarray:
 
 
 def run(argv=None):
-    """The app's single-process loop on `argv` (the command line when None);
-    returns the Renderer after the last frame."""
+    """The app's loop on `argv` (the command line when None); returns the
+    Renderer after the last frame."""
     args = build_arg_parser().parse_args(argv)
-    if args.num_processes > 1 or args.mesh or args.coordinator is not None:
-        raise NotImplementedError(DIST_NOT_PORTED)
+    # Multi-process bring-up precedes any device use.
+    world = None
+    if args.num_processes > 1 or args.mesh:
+        from nebulae_tpu_torch.dist.mesh import init_distributed
 
+        if args.num_processes > 1 and args.process_id is None:
+            raise ValueError(f"--num-processes {args.num_processes} needs --process-id (this process's rank)")
+        world = init_distributed(args.coordinator, args.num_processes, args.process_id or 0, device=args.device)
+    try:
+        return _run(args, world)
+    finally:
+        if world is not None:
+            world.close()
+
+
+def _run(args, world):
     import torch
 
     from nebulae_tpu_torch.config import RenderConfig, SunLight
     from nebulae_tpu_torch.core.camera import OrbitCamera
     from nebulae_tpu_torch.core.scene import load_scene
     from nebulae_tpu_torch.device import resolve_device
+    from nebulae_tpu_torch.dist.runner import DistRenderer, present_gather
     from nebulae_tpu_torch.engine.renderer import Renderer
     from nebulae_tpu_torch.utils import crashdump
+    from nebulae_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
     from nebulae_tpu_torch.utils.crashdump import Heartbeat
     from nebulae_tpu_torch.utils.display import FrameWriter
     from nebulae_tpu_torch.utils.logging import log_info
     from nebulae_tpu_torch.utils.metrics import MetricsLogger
     from nebulae_tpu_torch.utils.profiling import FrameTimer, profile_trace
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if world is None else world.device
+    is_host0 = world is None or world.rank == 0
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU (plain versions)"
     log_info(f"device: {device} ({name})")
     log_info(f"loading {args.scene}")
@@ -228,7 +250,11 @@ def run(argv=None):
     sun = _sun_with(SunLight.default(device), controls)
     env = _env_map(args.envmap) if args.envmap else None
     t0 = time.perf_counter()
-    renderer = Renderer(fs, cfg, sun=sun, device=device, env_map=env)
+    if world is None:
+        renderer = Renderer(fs, cfg, sun=sun, device=device, env_map=env)
+    else:
+        renderer = DistRenderer(fs, cfg, world, sun=sun, env_map=env)
+        log_info(f"world: rank {world.rank} of {world.size} ({world.backend}), rows {world.rows(cfg.height)}")
     log_info(f"renderer: route {renderer.route}, set up in {time.perf_counter() - t0:.3f} s")
     if args.nrc:
         from nebulae_tpu_torch.nrc.cache import memory_footprint
@@ -236,9 +262,7 @@ def run(argv=None):
         fp = memory_footprint(renderer.state["nrc"])
         log_info("nrc cache footprint: " + ", ".join(f"{k} {v / 1024:.1f} KiB" for k, v in fp.items()))
     if args.resume:
-        from nebulae_tpu_torch.utils.checkpoint import load_checkpoint
-
-        renderer.state = load_checkpoint(args.resume, renderer.state)
+        renderer.state = load_checkpoint(args.resume, renderer.state, world=world)
         log_info(f"resumed state from {args.resume}")
 
     lo, hi = fs.aabb_min, fs.aabb_max
@@ -251,35 +275,48 @@ def run(argv=None):
     writer = FrameWriter(args.out)
     timer = FrameTimer()
     preview = None
-    if args.preview is not None:
+    if args.preview is not None and is_host0:
         from nebulae_tpu_torch.utils.display import PreviewServer
 
         preview = PreviewServer(port=args.preview)
         log_info(f"live preview: http://127.0.0.1:{preview.port}/")
 
     crashdump.install(state_provider=lambda: renderer.state, dump_dir=args.crash_dir)
-    metrics_path = args.metrics or str(Path(args.out) / "metrics.jsonl")
+    # Each rank past 0 keeps its own metrics stream and liveness file.
+    sfx = "" if is_host0 else f".r{world.rank}"
+    metrics_path = args.metrics or str(Path(args.out) / f"metrics{sfx}.jsonl")
     metrics = MetricsLogger(None if metrics_path == "off" else metrics_path)
-    heartbeat = Heartbeat(args.heartbeat or Path(args.out) / "heartbeat")
+    heartbeat = Heartbeat(args.heartbeat or Path(args.out) / f"heartbeat{sfx}")
 
     base_tri_pos = np.asarray(fs.tri_pos) if args.animate else None
     ctrl_state = {"mtime": 0.0}
     accum: dict = {}
 
-    def poll_controls():
-        if not args.control_file:
-            return
+    def read_controls():
         try:
             mtime = Path(args.control_file).stat().st_mtime
         except OSError:
-            return
+            return None
         if mtime <= ctrl_state["mtime"]:
-            return
+            return None
         ctrl_state["mtime"] = mtime
         try:
-            ctl = json.loads(Path(args.control_file).read_text())
+            return json.loads(Path(args.control_file).read_text())
         except (OSError, ValueError) as e:
             log_info(f"control file unreadable: {e}")
+            return None
+
+    def poll_controls():
+        if not args.control_file:
+            return
+        ctl = read_controls() if is_host0 else None
+        if world is not None:
+            # Rank 0 reads the file and every rank applies what it read, so
+            # the ranks' configurations change on the same frame.
+            from nebulae_tpu_torch.dist.comm import broadcast_json
+
+            ctl = broadcast_json(world, ctl)
+        if ctl is None:
             return
         apply_controls(renderer, ctl)
         log_info(f"applied runtime controls: {sorted(ctl)}")
@@ -302,9 +339,12 @@ def run(argv=None):
                 # frame's RNG stream differs.  Tonemapped once after the loop.
                 accum["hdr"] = out["hdr"] if "hdr" not in accum else accum["hdr"] + out["hdr"]
             else:
-                writer.present(out["ldr"])
+                # Rank 0 presents the whole image, gathered from every rank.
+                ldr = present_gather(world, out["ldr"])
+                if is_host0:
+                    writer.present(ldr)
                 if preview is not None:
-                    preview.update(out["ldr"])
+                    preview.update(ldr)
             timer.tick()
             heartbeat.touch()
             metrics.scalar("frame_ms", (time.perf_counter() - t0) * 1e3)
@@ -314,9 +354,7 @@ def run(argv=None):
             metrics.count("frames")
             metrics.flush(step=i)
             if args.checkpoint_dir and (i + 1) % args.checkpoint_every == 0:
-                from nebulae_tpu_torch.utils.checkpoint import save_checkpoint
-
-                save_checkpoint(args.checkpoint_dir, renderer.state, step=i + 1)
+                save_checkpoint(args.checkpoint_dir, renderer.state, step=i + 1, world=world)
 
     try:
         if args.profile:
@@ -327,7 +365,9 @@ def run(argv=None):
         if args.accumulate and "hdr" in accum:
             from nebulae_tpu_torch.passes.tonemap import aces_tonemap
 
-            writer.present(aces_tonemap(accum["hdr"] / args.frames))
+            hdr = present_gather(world, accum["hdr"])
+            if is_host0:
+                writer.present(aces_tonemap(hdr / args.frames))
             writer.flush()
             log_info(f"wrote 1 accumulated still ({args.frames} frames) to {args.out}")
         else:

@@ -33,6 +33,7 @@ from nebulae_tpu_torch.core import rng as nrng
 from nebulae_tpu_torch.core.math import cross, dot, luminance, normalize
 from nebulae_tpu_torch.core.scene import FlatScene, to_tensors, transform_instances
 from nebulae_tpu_torch.device import resolve_device
+from nebulae_tpu_torch.dist.comm import all_reduce_sum
 from nebulae_tpu_torch.kernels import chunks as kc
 from nebulae_tpu_torch.kernels.trace import (
     empty_tables, grouped_tri_ids, pack_bvh_fat, pack_bvh_fat4, pack_bvh_nodes, tables_to,
@@ -94,11 +95,13 @@ def pack_scene_tables(bvh, tri_pos: np.ndarray, cfg: RenderConfig) -> tuple[str,
     return "node", {**pack_bvh_nodes(bvh, tri_pos, g), "paged": False}
 
 
-def init_frame_state(cfg: RenderConfig, device) -> dict:
+def init_frame_state(cfg: RenderConfig, device, world=None) -> dict:
     """SVGF history, frame counter and history-reset flag, and with
-    cfg.enable_nrc the cache state (init_cache(seed=0))."""
+    cfg.enable_nrc the cache state (init_cache(seed=0)).  On a rank of
+    `world` the history holds the rank's rows."""
+    r0, r1 = (0, cfg.height) if world is None else world.rows(cfg.height)
     state = {
-        "svgf": init_history(cfg.height, cfg.width, device),
+        "svgf": init_history(r1 - r0, cfg.width, device),
         "frame": 0,
         "reset_history": True,
     }
@@ -115,7 +118,7 @@ def nrc_train_frame(scene, sun, closest_fn, any_fn, cache_state, cam, frame: int
 
 
 def trace_samples(scene: dict, gbuf: dict, sun: SunLight, cam: dict, closest_fn, any_fn, rng_state,
-                  cfg: RenderConfig, cache_params=None, nrc_aux: dict | None = None):
+                  cfg: RenderConfig, cache_params=None, nrc_aux: dict | None = None, world=None):
     """The frame's cfg.spp samples from the G-buffer `gbuf`: path traced
     (or direct-lit without GI) and averaged.  Returns (radiance [N, 3],
     rng_state).  With cfg.jitter_primary each sample first draws its
@@ -124,17 +127,19 @@ def trace_samples(scene: dict, gbuf: dict, sun: SunLight, cam: dict, closest_fn,
     primary closest-hit walk) and shows the sky along its own missed rays;
     `gbuf` then only guides SVGF and the outputs.  With GI and
     `cache_params` each sample is the NRC query pass, and the last
-    sample's counters go into `nrc_aux`."""
+    sample's counters go into `nrc_aux`.  On a rank of `world` the
+    G-buffer holds the rank's rows."""
     w, h = cfg.width, cfg.height
-    acc = torch.zeros((w * h, 3), dtype=torch.float32, device=gbuf["ray_d"].device)
+    rows = (0, h) if world is None else world.rows(h)
+    acc = torch.zeros((gbuf["ray_d"].shape[0], 3), dtype=torch.float32, device=gbuf["ray_d"].device)
     for _ in range(cfg.spp):
         sample_gbuf = gbuf
         if cfg.jitter_primary:
             rng_state, jx = nrng.next_float(rng_state)
             rng_state, jy = nrng.next_float(rng_state)
-            o_j, d_j = camera_rays(cam, w, h, jitter=torch.stack([jx, jy], -1))
-            sample_gbuf = render_gbuffer(scene, closest_fn, o_j, d_j,
-                                         image_hw=(h, w) if cfg.texture_mips else None)
+            o_j, d_j = camera_rays(cam, w, h, jitter=torch.stack([jx, jy], -1), rows=rows)
+            sample_gbuf = render_gbuffer(scene, closest_fn, o_j, d_j, world=world,
+                                         image_hw=(rows[1] - rows[0], w) if cfg.texture_mips else None)
         if cfg.enable_gi and cache_params is not None:
             sample, rng_state, aux = path_trace_nrc_query(scene, sample_gbuf, sun, closest_fn, any_fn, rng_state,
                                                           cfg, cache_params)
@@ -152,7 +157,7 @@ def trace_samples(scene: dict, gbuf: dict, sun: SunLight, cam: dict, closest_fn,
 
 
 def render_frame(scene: dict, tables: dict | None, sun: SunLight, cam: dict, state: dict,
-                 cfg: RenderConfig, device=None):
+                 cfg: RenderConfig, device=None, world=None):
     """One frame.  `scene` (to_tensors of device_arrays), `tables` (a
     route's traversal tables, or None), `sun` and `cam` live on `device`
     (CUDA unless "cpu" is asked for).  Returns (outputs, new_state):
@@ -163,14 +168,25 @@ def render_frame(scene: dict, tables: dict | None, sun: SunLight, cam: dict, sta
     gradients (hits and textures are detached, as in JAX); `Renderer.render`
     calls it under no_grad.  With GI and cfg.enable_nrc the cache trains
     first (once a frame, without gradient), then the query pass reads the
-    new state's EMA parameters, detached."""
+    new state's EMA parameters, detached.
+
+    On a rank of `world` (dist.mesh.World) the frame is the rank's rows
+    (world.rows(cfg.height)): the state's SVGF history and every image
+    output hold those rows, each pixel keeps its RNG stream, the stencils
+    read their halo from the ranks that own it (passes/svgf.py), and
+    nrc_query_frac is the share of the whole image.  Every rank trains the
+    radiance cache on the same inputs, so the caches stay equal."""
     dev = resolve_device(device)
-    w, h = cfg.width, cfg.height
+    w, h_img = cfg.width, cfg.height
+    r0, h = 0, h_img
+    if world is not None:
+        r0, r1 = world.rows(h_img)
+        h = r1 - r0
     closest_fn, any_fn = make_tracer(scene, tables, cfg, device=dev)
 
     with record_function("nebulae/gbuffer"):
-        o, d = camera_rays(cam, w, h)
-        gbuf = render_gbuffer(scene, closest_fn, o, d, image_hw=(h, w) if cfg.texture_mips else None)
+        o, d = camera_rays(cam, w, h_img, rows=(r0, r0 + h))
+        gbuf = render_gbuffer(scene, closest_fn, o, d, image_hw=(h, w) if cfg.texture_mips else None, world=world)
 
     new_state = dict(state)
     nrc = cfg.enable_gi and cfg.enable_nrc
@@ -184,11 +200,11 @@ def render_frame(scene: dict, tables: dict | None, sun: SunLight, cam: dict, sta
 
     with record_function("nebulae/nrc_query" if nrc else "nebulae/pathtrace"):
         ys, xs = torch.meshgrid(
-            torch.arange(h, device=dev), torch.arange(w, device=dev), indexing="ij"
+            torch.arange(r0, r0 + h, device=dev), torch.arange(w, device=dev), indexing="ij"
         )
         rng_state = nrng.init_rng(xs.reshape(-1), ys.reshape(-1), w, state["frame"])
         radiance, _rng_state = trace_samples(scene, gbuf, sun, cam, closest_fn, any_fn, rng_state, cfg,
-                                             cache_params, nrc_aux)
+                                             cache_params, nrc_aux, world)
         if not cfg.jitter_primary:
             # Primary misses show the sky (with jitter each sample composited
             # the sky along its own ray).
@@ -220,11 +236,11 @@ def render_frame(scene: dict, tables: dict | None, sun: SunLight, cam: dict, sta
                     with record_function("nebulae/svgf_reproject"):
                         warped, valid = reproject_history(
                             hist, gbuf["position"].reshape(h, w, 3), state["svgf"]["prev_viewproj"],
-                            w, h, prev_eye=state["svgf"]["prev_eye"], current_depth=depth,
+                            w, h_img, prev_eye=state["svgf"]["prev_eye"], current_depth=depth, world=world,
                         )
                         warped["depth"] = torch.where(valid, warped["depth"], -1e9)
                     hist = warped
-            denoised, new_hist = svgf_denoise(img, depth, normal, hist, cfg, hit=hit)
+            denoised, new_hist = svgf_denoise(img, depth, normal, hist, cfg, hit=hit, world=world)
             new_hist["prev_viewproj"] = cam["viewproj"]
             new_hist["prev_eye"] = cam["eye"]
             new_state["svgf"] = new_hist
@@ -236,6 +252,8 @@ def render_frame(scene: dict, tables: dict | None, sun: SunLight, cam: dict, sta
     with record_function("nebulae/tonemap"):
         ldr = aces_tonemap(denoised) if cfg.enable_tonemap else denoised
     query_frac = nrc_aux["query_frac"] if nrc else zero
+    if nrc and world is not None:
+        query_frac = all_reduce_sum(world, nrc_aux["query_set"].float().sum(), "query_count") / (h_img * w)
     if cfg.lean_outputs:
         return {"ldr": ldr, "nrc_loss": nrc_loss, "nrc_query_frac": query_frac}, new_state
     outputs = {
@@ -274,7 +292,10 @@ class Renderer:
     on the host (its topology; a refit keeps it), `node_lo` / `node_hi`
     its bounds on the device, which `update_geometry` refits.  `env_map`
     (a lat-long [H, W, 3] float32 map) becomes scene["env_map"] on the
-    device, the sky that cfg.enable_envmap shows, as JAX's app sets it."""
+    device, the sky that cfg.enable_envmap shows, as JAX's app sets it.
+    `world` is None here; dist.runner.DistRenderer renders a rank's rows."""
+
+    world = None
 
     def __init__(self, flat_scene: FlatScene, cfg: RenderConfig, sun: SunLight | None = None,
                  bvh=None, device=None, env_map=None):
@@ -307,7 +328,7 @@ class Renderer:
             self._base_tri_nrm = self.scene["tri_nrm"].clone()
         self._refit = None
         self.sun = (sun if sun is not None else SunLight.default(self.device)).to(self.device)
-        self.state = init_frame_state(cfg, self.device)
+        self.state = init_frame_state(cfg, self.device, self.world)
         self._last_cam = None
 
     def reset_history(self):
@@ -319,7 +340,7 @@ class Renderer:
         cache stay."""
         nrc = self.state.get("nrc")
         self.cfg = dataclasses.replace(self.cfg, width=width, height=height)
-        self.state = init_frame_state(self.cfg, self.device)
+        self.state = init_frame_state(self.cfg, self.device, self.world)
         if nrc is not None:
             self.state["nrc"] = nrc
 
@@ -447,6 +468,6 @@ class Renderer:
         cam = make_camera_arrays(camera, self.cfg.width, self.cfg.height, self.device)
         outputs, self.state = render_frame(
             self.scene, self.tables, sun.to(self.device) if sun is not None else self.sun,
-            cam, self.state, self.cfg, device=self.device,
+            cam, self.state, self.cfg, device=self.device, world=self.world,
         )
         return outputs

@@ -25,6 +25,7 @@ from torch.profiler import record_function
 
 from nebulae_tpu_torch.config import SUN_LEAVES, RenderConfig, SunLight
 from nebulae_tpu_torch.device import resolve_device
+from nebulae_tpu_torch.dist.comm import all_reduce_sum
 from nebulae_tpu_torch.engine.renderer import render_frame
 
 # Scene tables that are trainable (the material factors).
@@ -124,38 +125,62 @@ class Adam:
         return unflatten_params(params, new), state
 
 
-def render_loss(params, frozen_scene, tables, cam, state, target, cfg: RenderConfig, device=None):
+def render_loss(params, frozen_scene, tables, cam, state, target, cfg: RenderConfig, device=None, world=None):
     """(loss, (new_state, img)): MSE of the denoised image (the hdr one when
     SVGF is off) against `target`.  `lean_outputs` is turned off, since the
-    loss reads the linear image."""
+    loss reads the linear image.  On a rank of `world` the state, `target`
+    and `img` hold the rank's rows, and the loss is the rank's share: its
+    squared error over the whole image's element count, so the ranks'
+    losses and gradients sum to the image's."""
     scene = dict(frozen_scene)
     scene.update({k: v for k, v in params.items() if k != "sun"})
     cfg = dataclasses.replace(cfg, lean_outputs=False)
-    out, new_state = render_frame(scene, tables, params["sun"], cam, state, cfg, device=device)
+    out, new_state = render_frame(scene, tables, params["sun"], cam, state, cfg, device=device, world=world)
     img = out["denoised"] if cfg.enable_svgf else out["hdr"]
-    loss = torch.mean((img - target) ** 2)
+    if world is None:
+        loss = torch.mean((img - target) ** 2)
+    else:
+        loss = torch.sum((img - target) ** 2) / (cfg.height * cfg.width * 3)
     return loss, (new_state, img)
 
 
+def loss_and_grads(params, frozen_scene, tables, cam, state, target, cfg: RenderConfig, device=None, world=None):
+    """render_loss and its gradients with respect to flatten_params(params)
+    (zeros for a leaf the loss does not reach) -> (loss, grads, new_state,
+    img).  On a rank of `world` the loss and the gradients are summed over
+    ranks: every rank gets the whole image's."""
+    leaves = [t.detach().requires_grad_(True) for t in flatten_params(params)]
+    with torch.enable_grad():
+        loss, (new_state, img) = render_loss(
+            unflatten_params(params, leaves), frozen_scene, tables, cam, state, target,
+            cfg, device=device, world=world,
+        )
+        with record_function("nebulae/backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
+    if world is not None:
+        with record_function("nebulae/grad_sum"):
+            loss = all_reduce_sum(world, loss, "loss")
+            flat = all_reduce_sum(world, torch.cat([g.reshape(-1) for g in grads]), "grads")
+            grads = [g.reshape(x.shape) for g, x in zip(flat.split([x.numel() for x in leaves]), leaves)]
+    return loss.detach(), grads, new_state, img
+
+
 def make_train_step(cfg: RenderConfig, frozen_scene: dict, tables: dict | None,
-                    optimizer: Adam | None = None, train_sun: bool = True, device=None):
+                    optimizer: Adam | None = None, train_sun: bool = True, device=None, world=None):
     """Build the train step (see the module docstring); returns
     (step, optimizer).  With train_sun=False the sun's gradients are zeros,
-    so, as in optax, the sun still moves while its Adam moments decay."""
+    so, as in optax, the sun still moves while its Adam moments decay.
+    On a rank of `world` the step takes and returns the rank's rows of the
+    state, target and image; the loss and every gradient are summed over
+    ranks before Adam, so params and Adam's state stay equal on all."""
     dev = resolve_device(device)
     if optimizer is None:
         optimizer = Adam(1e-2)
 
     def step(params, opt_state, cam, state, target):
-        leaves = [t.detach().requires_grad_(True) for t in flatten_params(params)]
-        with torch.enable_grad():
-            loss, (new_state, img) = render_loss(
-                unflatten_params(params, leaves), frozen_scene, tables, cam, state, target,
-                cfg, device=dev,
-            )
-            with record_function("nebulae/backward"):
-                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
+        loss, grads, new_state, img = loss_and_grads(params, frozen_scene, tables, cam, state, target, cfg,
+                                                     device=dev, world=world)
         if not train_sun:
             n_sun = len(SUN_LEAVES)
             grads = grads[:-n_sun] + [torch.zeros_like(g) for g in grads[-n_sun:]]
@@ -163,6 +188,6 @@ def make_train_step(cfg: RenderConfig, frozen_scene: dict, tables: dict | None,
             new_params, opt_state = optimizer.apply(params, grads, opt_state)
             mats = clamp_scene_params({k: v for k, v in new_params.items() if k != "sun"})
             new_params = {**mats, "sun": new_params["sun"]}
-        return new_params, opt_state, detach_state(new_state), loss.detach(), img.detach()
+        return new_params, opt_state, detach_state(new_state), loss, img.detach()
 
     return step, optimizer

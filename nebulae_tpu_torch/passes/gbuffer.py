@@ -13,6 +13,7 @@ import torch
 
 from nebulae_tpu_torch.core.math import normalize
 from nebulae_tpu_torch.core.surface import has_textures, mip_level_from_uv, reconstruct_surface
+from nebulae_tpu_torch.dist.comm import exchange_rows
 
 
 def make_camera_arrays(camera, width: int, height: int, device) -> dict:
@@ -35,12 +36,15 @@ def make_camera_arrays(camera, width: int, height: int, device) -> dict:
     }
 
 
-def camera_rays(cam: dict, width: int, height: int, jitter=None):
+def camera_rays(cam: dict, width: int, height: int, jitter=None, rows=None):
     """Primary rays in row-major order: (o, d) [H*W, 3].  Through the pixel
-    centres, or with `jitter` [H*W, 2] at (x + jx, y + jy) in each pixel."""
+    centres, or with `jitter` [H*W, 2] at (x + jx, y + jy) in each pixel.
+    `rows` (r0, r1) makes the rays of global rows r0..r1-1 only, in the
+    NDC of the whole image."""
     dev = cam["eye"].device
+    r0, r1 = (0, height) if rows is None else rows
     ys, xs = torch.meshgrid(
-        torch.arange(height, dtype=torch.float32, device=dev),
+        torch.arange(r0, r1, dtype=torch.float32, device=dev),
         torch.arange(width, dtype=torch.float32, device=dev),
         indexing="ij",
     )
@@ -58,14 +62,30 @@ def camera_rays(cam: dict, width: int, height: int, jitter=None):
     return o, d
 
 
-def render_gbuffer(scene: dict, closest_fn, o, d, image_hw=None):
+def _mip_level(scene: dict, hit: dict, h: int, w: int, world):
+    """mip_level_from_uv on an h x w block of rows.  On a rank of `world`
+    the uv derivatives read one row past each interior edge of its rows:
+    those rows' hits come from the ranks that own them."""
+    if world is None:
+        return mip_level_from_uv(scene, hit["tri"], hit["u"], hit["v"], h, w)
+    tri = hit["tri"].to(torch.int32)
+    packed = torch.stack([hit["u"], hit["v"], tri.view(torch.float32)], -1).reshape(h, w, 3)
+    padded, top, bot = exchange_rows(world, packed, 1)
+    flat = padded.reshape(-1, 3)
+    mip = mip_level_from_uv(scene, flat[:, 2].contiguous().view(torch.int32), flat[:, 0], flat[:, 1],
+                            top + h + bot, w)
+    return mip[top * w:(top + h) * w]
+
+
+def render_gbuffer(scene: dict, closest_fn, o, d, image_hw=None, world=None):
     """Trace primary rays -> G-buffer dict (flat [N, ...]).  `image_hw`
-    (h, w) turns on per-pixel atlas mip selection."""
+    (h, w) turns on per-pixel atlas mip selection; on a rank of `world`
+    (dist.mesh.World) the rays are the rank's h rows of the image."""
     hit = {k: v.detach() for k, v in closest_fn(o.detach().contiguous(), d.detach().contiguous()).items()}
     valid = hit["tri"] >= 0
     mip = None
     if image_hw is not None and has_textures(scene):
-        mip = mip_level_from_uv(scene, hit["tri"], hit["u"], hit["v"], image_hw[0], image_hw[1])
+        mip = _mip_level(scene, hit, image_hw[0], image_hw[1], world)
     surf = reconstruct_surface(scene, hit["tri"], hit["u"], hit["v"], view_dir=-d, mip_level=mip)
     vm = valid[..., None]
     return {

@@ -8,7 +8,10 @@ cache, its parameters, EMA parameters and Adam state {count, mu, nu}.
 sees half a checkpoint); `load_checkpoint` reads it back with
 torch.load(weights_only=True) onto the devices of a `like` state and
 raises on any difference from it in structure, shape or dtype, as JAX's
-restore against a target does.
+restore against a target does.  With a `world` (dist.mesh.World) both are
+collective: a checkpoint holds the whole image's state, whatever the
+number of ranks; every rank gathers it, rank 0 writes it, and on resume
+every rank reads it and keeps its rows (JAX's app.py:276-287, :398-408).
 """
 
 from __future__ import annotations
@@ -32,12 +35,23 @@ def _host_copy(tree):
     return tree
 
 
-def save_checkpoint(path: str | Path, state: dict, step: int | None = None) -> str:
+def save_checkpoint(path: str | Path, state: dict, step: int | None = None, world=None) -> str:
     """Save `state`; returns the directory written (`<path>/step_%08d` with
-    a step), replacing one that exists."""
+    a step), replacing one that exists.  On a rank of `world`, `state` is
+    the rank's and the call is collective; the ranks return once rank 0
+    has written the whole state."""
     path = Path(path).absolute()
     if step is not None:
         path = path / f"step_{step:08d}"
+    if world is not None:
+        from nebulae_tpu_torch.dist.comm import barrier
+        from nebulae_tpu_torch.dist.runner import gather_state
+
+        state = gather_state(world, state)
+        if world.rank == 0:
+            save_checkpoint(path, state)
+        barrier(world, "checkpoint")
+        return str(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.parent / f".{path.name}.tmp{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
@@ -72,11 +86,18 @@ def _restore(saved, like, where: str):
     return saved
 
 
-def load_checkpoint(path: str | Path, like: dict) -> dict:
+def load_checkpoint(path: str | Path, like: dict, world=None) -> dict:
     """Restore a checkpoint directory with `like` as the structure, shape,
-    dtype and device spec."""
+    dtype and device spec.  On a rank of `world`, `like` is the rank's
+    state, the checkpoint the whole image's, and the rank keeps its rows
+    (collective)."""
     saved = torch.load(Path(path).absolute() / STATE_FILE, map_location="cpu", weights_only=True)
-    return _restore(saved, like, "")
+    if world is None:
+        return _restore(saved, like, "")
+    from nebulae_tpu_torch.dist.mesh import shard_frame_state
+    from nebulae_tpu_torch.dist.runner import gather_state
+
+    return shard_frame_state(world, _restore(saved, gather_state(world, like), ""))
 
 
 def latest_step_dir(root: str | Path) -> str | None:

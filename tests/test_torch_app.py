@@ -10,8 +10,8 @@
   * the CLI (`python -m nebulae_tpu_torch.app --device cpu`) on a glTF the
     test writes: frames, metrics.jsonl and the heartbeat, --accumulate,
     the control file and apply_controls, resume bit for bit with the cache
-    off and on, the dist flags raising, and --device left to default
-    raising without CUDA;
+    off and on, the dist flags running (2 processes, --mesh, a lone
+    --coordinator), and --device left to default raising without CUDA;
   * the port's app against JAX's app.main on one written glTF at 32x32, 2
     frames, 8 bounces, SVGF and ACES, an orbiting camera: the frames'
     sRGB bytes within 1 on >= 99% of pixels and a mean difference below
@@ -426,13 +426,50 @@ def test_resume_is_bit_consistent(tmp_path, scene_file, nrc):
             torch.testing.assert_close(x["w"], y["w"], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("flags", [["--num-processes", "2", "--process-id", "0"], ["--mesh"],
-                                   ["--coordinator", "localhost:1234"]])
-def test_dist_flags_raise(tmp_path, scene_file, flags):
+def test_processes_without_a_process_id_raise(tmp_path, scene_file):
+    """--num-processes above 1 without --process-id raises before any
+    process meets its peers (every one would otherwise take rank 0)."""
     from nebulae_tpu_torch import app
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 12"):
-        app.main(["--scene", str(scene_file), "--device", "cpu", "--out", str(tmp_path), *flags])
+    with pytest.raises(ValueError, match="needs --process-id"):
+        app.run(_argv(scene_file, tmp_path / "run", "--frames", "1", "--num-processes", "2",
+                      "--coordinator", "127.0.0.1:1"))
+
+
+@pytest.mark.parametrize("flags", [["--num-processes", "2", "--process-id", "0"], ["--mesh"],
+                                   ["--coordinator", "localhost:1234"]])
+def test_dist_flags_run(tmp_path, scene_file, flags):
+    """Each dist flag set runs and gives the plain run's frame byte for
+    byte: 2 processes (this one rank 0, a subprocess rank 1, meeting at a
+    port picked just before the launch), --mesh as a world of one through
+    DistRenderer, and a lone --coordinator on the single path, as in JAX's
+    app (nebulae_tpu/app.py:166)."""
+    import socket
+
+    from nebulae_tpu_torch import app
+
+    extra = ["--frames", "1", "--bounces", "2"]
+    plain = _pixels(_run(scene_file, tmp_path / "plain", *extra))
+    peer = None
+    if "--num-processes" in flags:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        flags = flags + ["--coordinator", f"127.0.0.1:{port}"]
+        argv = _argv(scene_file, tmp_path / "run", *extra, *flags)
+        argv[argv.index("--process-id") + 1] = "1"
+        peer = subprocess.Popen([sys.executable, "-m", "nebulae_tpu_torch.app", *argv], cwd=REPO,
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        r = app.run(_argv(scene_file, tmp_path / "run", *extra, *flags))
+    finally:
+        if peer is not None:
+            out = peer.communicate(timeout=120)[0]
+    if peer is not None:
+        assert peer.returncode == 0, out
+        assert (tmp_path / "run" / "metrics.r1.jsonl").exists() and (tmp_path / "run" / "heartbeat.r1").exists()
+    assert type(r).__name__ == ("Renderer" if flags[0] == "--coordinator" else "DistRenderer")
+    np.testing.assert_array_equal(_pixels(sorted((tmp_path / "run").glob("frame_*.png")))[0], plain[0])
 
 
 def test_app_needs_cuda_unless_cpu_is_asked_for(tmp_path, scene_file):
