@@ -47,7 +47,10 @@ Phases (any failure raises and exits non-zero):
               its plain versions with max error 0: on each of its launches
               in a box frame and in a 2M bvh_wide=2 frame (the single-leaf
               chunks), over the whole 247k tree at 1080p and 2^21 rays, and
-              at the stress sizes over that tree and over the box's leaf
+              at the stress sizes over that tree and over the box's leaf.
+              A 1080p train step on the tri and subtree routes and on the
+              box: launch counts, and a second step profiled (K6b, K6c and
+              K8 device ms in a step)
   8. fat2     bvh_wide=2 and dynamic scenes.  The bench scene's fat2 table:
               K7 (fat2 closest, fused and any) against its plain versions
               and against K1-K3 at the phase-4 shapes and at the stress
@@ -118,7 +121,28 @@ Phases (any failure raises and exits non-zero):
               running the dry run (nebulae_tpu_torch.dist.dryrun); the app
               as 2 processes at its defaults, 8 frames checkpointed after 4
               and 4 resumed (byte for byte), against 1 process
- 13. summary  one {"kernels": [...]} line, then the device line last
+ 13. nrc-routes  the neural radiance cache at 1920x1080 with full
+              outputs on every frame option, route and width: the bench
+              scene with jitter_primary, fast_bounce_shading, enable_envmap
+              and all three (1 warm-up and 3 timed frames each, nrc_loss,
+              query share and launch counts; one jitter frame profiled; K1,
+              K2 and K3 held on each launch of an all-options frame, the
+              training pass's included); the ~247k scene on each chunk_mode
+              (1 + 2 frames; the first held against auto's from one cache:
+              paged byte for byte, its cache too, tri and subtree at the NRC
+              tolerance; K1-K3, K6a, K6b and the K6c chains held on each
+              launch of a frame); the bench scene with bvh_wide=2 against
+              fat4 (K7a-c on each launch); the ~2M scene paged and with
+              bvh_wide=2 (1 + 1 frames each, hit masks equal; K7 and K8 on
+              each launch of the fat2 frame); update_instances at 2M on the
+              paged table (first call, 3 timed and one profiled call; a
+              plain frame against a rebuild); update_instances under the
+              cache on the bench scene's fat4 table and the 247k subtree
+              route (repacked to paged), NRC frames against a rebuild from
+              the same cache; an NRC train step on the 247k subtree route
+              (K5 on each launch); 64x64 NRC frames with jitter and the
+              env-map sky on the GPU against the CPU plain path
+ 14. summary  one {"kernels": [...]} line, then the device line last
 Each phase logs its seconds; each profile lists every launch of a port
 kernel with its grid, block, registers and time.  Imports nothing of JAX or
 of the JAX package.
@@ -580,34 +604,9 @@ def recorded_launches(render, *wrappers) -> list:
 
 def node_launches(render) -> list:
     """Each K8 launch of one render() as (walk, o, d, tables, cap), walk
-    "closest" or "any", through spies on the two K8 wrappers (the one-node
-    route and the subtree chains look them up when they trace); launches of
-    no rays, which launch nothing, are left out."""
-    import torch
-
-    from nebulae_tpu_torch.kernels import trace as kt
-
-    recs = []
-    closest, any_hit = kt.closest_hit_node, kt.any_hit_node
-
-    def spy(walk, fn):
-        def call(o, d, tables, t_max=float("inf")):
-            out = fn(o, d, tables, t_max)
-            if o.shape[0] and tables["nodes"].shape[0]:
-                cap = t_max.clone() if torch.is_tensor(t_max) else t_max
-                recs.append((walk, o.clone(), d.clone(), tables, cap))
-            return out
-        # The wrapper counts on, and records to, whatever its module name
-        # holds while the spy stands in.
-        call.launches, call.record = 0, None
-        return call
-
-    kt.closest_hit_node, kt.any_hit_node = spy("closest", closest), spy("any", any_hit)
-    try:
-        render()
-    finally:
-        kt.closest_hit_node, kt.any_hit_node = closest, any_hit
-    return recs
+    "closest" or "any" (walk_launches' records of the two K8 wrappers)."""
+    return [(name.split("_")[0], *rays, tables, *caps) for name, rays, caps, tables in walk_launches(render)
+            if name.endswith("_node")]
 
 
 def hold_node_launches(what, recs) -> tuple:
@@ -950,9 +949,10 @@ def hold_chain(tag, chunks, fns, primary, secondary):
     return held, (best, best_b, occ_l, occ)
 
 
-def step_launches(renderer, cam, wrappers) -> dict:
+def step_launches(renderer, cam, wrappers, kernel_names=(), what="step") -> dict:
     """One 1080p train step with a renderer's tables and config: its
-    launch counts."""
+    launch counts.  With `kernel_names`, a second step timed and a third
+    profiled (those kernels' device ms, K5's and the phases')."""
     import torch
 
     from nebulae_tpu_torch.engine.renderer import init_frame_state
@@ -963,10 +963,17 @@ def step_launches(renderer, cam, wrappers) -> dict:
     cfg = renderer.cfg
     step, opt = make_train_step(cfg, frozen, renderer.tables, device=renderer.device)
     target = torch.zeros((HEIGHT, WIDTH, 3), dtype=torch.float32, device=renderer.device)
+    opt_state = opt.init(params)
     _zero(wrappers)
-    _p, _o, _s, loss, _img = step(params, opt.init(params), cam, init_frame_state(cfg, renderer.device), target)
+    _p, _o, _s, loss, _img = step(params, opt_state, cam, init_frame_state(cfg, renderer.device), target)
     assert bool(torch.isfinite(loss)), "non-finite train step"
-    return {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    launches = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    if kernel_names:
+        state = init_frame_state(cfg, renderer.device)
+        step_ms = once_ms(lambda: float(step(params, opt_state, cam, state, target)[3]))
+        profile_frame(lambda: step(params, opt_state, cam, state, target), kernel_names + ("atrous_bwd_kernel",),
+                      step_ms, phases=TRAIN_PHASES, what=what)
+    return launches
 
 
 def large_phase(base_cfg) -> tuple[dict, dict]:
@@ -1079,7 +1086,9 @@ def large_phase(base_cfg) -> tuple[dict, dict]:
         if mode == "tri":
             _read_launches(launches, n, ("closest_fat4_slots", "shadow_closest_fat4_slots", "any_fat4_slots"))
     for mode in ("tri", "subtree"):
-        log(f"large train step {mode}: launches {json.dumps(step_launches(renderers[mode], cam, wrappers))}")
+        n = step_launches(renderers[mode], cam, wrappers, ("closest_fat4", "combo_fat4", "any_fat4"),
+                          f"large {mode} step")
+        log(f"large train step {mode}: launches {json.dumps(n)}")
     ref = outs["auto"]
     assert torch.equal(outs["paged"]["ldr"], ref["ldr"]), "paged frame differs from the single-table frame"
     for mode in ("tri", "subtree"):
@@ -1211,7 +1220,8 @@ def large_phase(base_cfg) -> tuple[dict, dict]:
            exact=True)
     del recs, o8, d8
     cam_box_arrays = make_camera_arrays(cam_box, WIDTH, HEIGHT, dev)
-    log(f"box train step: launches {json.dumps(step_launches(rb8, cam_box_arrays, wrappers))}")
+    n = step_launches(rb8, cam_box_arrays, wrappers, NODE_KERNELS, "box step")
+    log(f"box train step: launches {json.dumps(n)}")
     clock.done("box frame")
     return report, launches
 
@@ -1576,14 +1586,15 @@ def hold_walk_launches(what, tables, k1s, k2s, k3s, table="fat4") -> None:
             f"plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms ({h.by})")
 
 
-def nrc_frames(r, cam_obj, wrappers, n_warm, n_timed, what, may_idle=("any_fat4",)):
+def nrc_frames(r, cam_obj, wrappers, n_warm, n_timed, what, may_idle=("any_fat4",), keep=None):
     """n_warm + n_timed frames of an NRC renderer with the launch counts set
     to 0 just before and read just after; logs each frame's nrc_loss and
     nrc_query_frac and peak memory.  Returns (mean ms of the timed frames,
     the counts).  Every kernel but those of
     `may_idle` must launch: K3 runs at each pass's last vertex, where the
     spread heuristic and the sky leave few paths alive, and a walk with no
-    live ray launches nothing."""
+    live ray launches nothing.  A `keep` dict receives the first frame's
+    outputs."""
     import torch
 
     _zero(wrappers)
@@ -1596,6 +1607,8 @@ def nrc_frames(r, cam_obj, wrappers, n_warm, n_timed, what, may_idle=("any_fat4"
         torch.cuda.synchronize()
         if i >= n_warm:
             times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0 and keep is not None:
+            keep.update(out)
         scalars.append((float(out["nrc_loss"]), float(out["nrc_query_frac"])))
     launches = {name: fn.launches for name, fn in wrappers.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1625,28 +1638,25 @@ def _state_to(x, device):
     return x.to(device) if isinstance(x, torch.Tensor) else x
 
 
-def small_nrc_check(fs, cam_obj, what="nrc small frames") -> None:
-    """Two 64x64 NRC frames on the GPU (kernels, bf16 tensor-core
+def small_nrc_check(fs, cam_obj, what="nrc small frames", options=None, env_map=None) -> None:
+    """Two 64x64 NRC frames (under `options`, with `env_map` as the sky) on
+    the GPU (kernels, bf16 tensor-core
     products) against the CPU (plain versions, exact products), each from
     one frame state (cache and SVGF history) copied to both devices: ldr on
     >= 99% of pixels within rtol 1e-2 / atol 1e-3, nrc_loss to a relative
     1e-3, nrc_query_frac within 0.5% (tests/test_torch_nrc_frame.py's
     tolerances against JAX).  Left to run on, the devices' caches part:
     a handful of training paths differ by an ulp-level hit or shading
-    difference, and Adam's first steps move a weight by about lr * sign(g).
-    Then one cache step on both devices from one set of records: loss to
-    a relative 1e-5, params to a relative L2 error <= 1e-3
-    (tests/test_torch_nrc.py's tolerances for one step against JAX)."""
+    difference, and Adam's first steps move a weight by about lr * sign(g)."""
     import torch
 
     from nebulae_tpu_torch.config import RenderConfig
     from nebulae_tpu_torch.engine.renderer import Renderer
-    from nebulae_tpu_torch.nrc.cache import init_cache, make_optimizer, train_cache_step
-    from nebulae_tpu_torch.nrc.mlp import mlp_leaves
 
     cfg = RenderConfig(width=64, height=64, max_bounces=BOUNCES, enable_svgf=True, enable_tonemap=True,
-                       enable_nrc=True)
-    r_gpu, r_cpu = Renderer(fs, cfg, device="cuda"), Renderer(fs, cfg, device="cpu")
+                       enable_nrc=True, **(options or {}))
+    r_gpu = Renderer(fs, cfg, device="cuda", env_map=env_map)
+    r_cpu = Renderer(fs, cfg, device="cpu", env_map=env_map)
     for i in range(2):
         r_gpu.state = _state_to(r_cpu.state, "cuda")
         g = {k: v.cpu() for k, v in r_gpu.render(cam_obj).items()}
@@ -1659,6 +1669,16 @@ def small_nrc_check(fs, cam_obj, what="nrc small frames") -> None:
         assert abs(qg - qc) <= 0.005, f"{what} {i}: query_frac {qg} vs CPU {qc}"
         log(f"{what} {i}: GPU agrees with the CPU plain path: {float(close):.6f} of pixels within rtol 1e-2 / "
             f"atol 1e-3, nrc_loss {lg:.6f} vs {lc:.6f}, query_frac {qg:.6f} vs {qc:.6f}")
+
+
+def nrc_cache_step_check() -> None:
+    """One cache step on both devices from one set of records: loss to a
+    relative 1e-5, params to a relative L2 error <= 1e-3
+    (tests/test_torch_nrc.py's tolerances for one step against JAX)."""
+    import torch
+
+    from nebulae_tpu_torch.nrc.cache import init_cache, make_optimizer, train_cache_step
+    from nebulae_tpu_torch.nrc.mlp import mlp_leaves
 
     gen = torch.Generator().manual_seed(7)
     n = 16384
@@ -1786,11 +1806,347 @@ def nrc_phase(base_cfg, fs, bvh) -> None:
 
     small = small_atrium(0)
     small_nrc_check(small, atrium_camera(small))
+    nrc_cache_step_check()
     small_train_check(small, {"enable_nrc": True}, what="nrc small train step", camera=atrium_camera(small))
     t0 = time.perf_counter()
     probe = nrc_quality_probe()
     log(f"nrc probe: {json.dumps(probe)} in {time.perf_counter() - t0:.1f} s")
     assert probe["ratio"] < 1.0, f"nrc probe: the cache does not help at the defaults: {probe}"
+
+
+# Phase 13: the radiance cache on every frame option, route and width.
+# Each traversal wrapper's K number, as the kernels line and PERF.md name it.
+WALK_TAGS = {
+    "closest_hit_fat4": "K1", "shadow_closest_fat4": "K2", "any_hit_fat4": "K3",
+    "closest_hit_fat4_paged": "K6a closest", "shadow_closest_fat4_paged": "K6a fused",
+    "any_hit_fat4_paged": "K6a any", "closest_hit_fat4_slots": "K6b closest",
+    "shadow_closest_fat4_slots": "K6b fused", "any_hit_fat4_slots": "K6b any",
+    "closest_hit_fat": "K7a", "shadow_closest_fat": "K7b", "any_hit_fat": "K7c",
+    "closest_hit_node": "K8 closest", "any_hit_node": "K8 any",
+}
+
+
+def walk_launches(render) -> list:
+    """Each traversal-kernel launch of one render() as (wrapper name, rays,
+    caps, tables), through spies on every wrapper of kernels/trace.py (the
+    routes, the chunk chains and the one-node walks look them up when they
+    trace).  Calls that launch nothing (no rays, an empty table) are left
+    out.  Each wrapper keeps the launches its spy counted."""
+    import torch
+
+    from nebulae_tpu_torch.kernels import trace as kt
+
+    recs, spies = [], {}
+
+    def spy(fn):
+        name = fn.__name__
+        n_caps = 2 if name.startswith("shadow") else 1
+
+        def call(*args):
+            before = call.launches
+            out = fn(*args)
+            if call.launches > before:
+                i = next(k for k, a in enumerate(args) if isinstance(a, dict))
+                caps = list(args[i + 1:]) + [float("inf")] * (n_caps - len(args[i + 1:]))
+                recs.append((name, [a.clone() for a in args[:i]],
+                             [c.clone() if torch.is_tensor(c) else c for c in caps], args[i]))
+            return out
+
+        # The wrapper counts on, and records to, whatever its module name
+        # holds while the spy stands in.
+        call.launches, call.record = fn.launches, None
+        return call
+
+    try:
+        for fn in kt.WRAPPERS:
+            spies[fn.__name__] = spy(fn)
+            setattr(kt, fn.__name__, spies[fn.__name__])
+        render()
+    finally:
+        for fn in kt.WRAPPERS:
+            if fn.__name__ in spies:
+                fn.launches = spies[fn.__name__].launches
+                setattr(kt, fn.__name__, fn)
+    return recs
+
+
+def hold_launches(what, recs) -> dict:
+    """Each launch of walk_launches held against its plain version on its
+    own inputs and tables (tri, t, u, v and occ equal: max error 0) and
+    timed; logs each wrapper's launches, rays, kernel, plain and bound ms.
+    Returns {wrapper name: Held}."""
+    from nebulae_tpu_torch.kernels import trace as kt
+
+    held, rays = {}, {}
+    for name, ins, caps, tab in recs:
+        base = next(b for b in ("closest_hit", "shadow_closest", "any_hit") if name.startswith(b))
+        family = "node" if name.endswith("_node") else "fat" if name.endswith("_fat") else "fat4"
+        plain = getattr(kt, f"{base}_{family}_plain")
+        extra = {"slot_range": (int(tab["slot_lo"]), int(tab["slot_hi"]))} if name.endswith("_slots") else {}
+        kernel = getattr(kt, name)
+        h = held.setdefault(name, Held())
+        tag = f"{what} {WALK_TAGS[name]} launch {rays.get(name, (0, 0))[0]}"
+        if base == "closest_hit":
+            hold_closest(h, tag, lambda a, b, t: kernel(a, b, tab, t),
+                         lambda a, b, t, w: plain(a, b, tab, t, work=w, **extra), *ins, tab, *caps)
+        elif base == "shadow_closest":
+            hold_combo(h, tag, lambda a, b, l_, tb, tl: kernel(a, b, l_, tab, tb, tl),
+                       lambda a, b, l_, tb, tl, w: plain(a, b, l_, tab, tb, tl, work=w, **extra), *ins, tab, *caps)
+        else:
+            hold_any(h, tag, lambda a, b, t: kernel(a, b, tab, t),
+                     lambda a, b, t, w: plain(a, b, tab, t, work=w, **extra), *ins, tab, *caps)
+        n, r = rays.get(name, (0, 0))
+        rays[name] = (n + 1, r + ins[0].shape[0])
+    for name, h in held.items():
+        assert h.err == 0.0, f"{what} {WALK_TAGS[name]}: max error {h.err}"
+        log(f"{what} {WALK_TAGS[name]} ({name}) on its {rays[name][0]} launches ({rays[name][1]} rays): "
+            f"max err 0, kernel {h.ms:.3f} ms, plain {h.plain_ms:.1f} ms, bound {h.bound:.4f} ms ({h.by})")
+    return held
+
+
+def _route_wrappers(suffix: str, node=False) -> dict:
+    """The launch counters of one table family's walks ("fat4", "fat4_paged",
+    "fat4_slots", "fat"; with `node` K8's too) and K4's."""
+    from nebulae_tpu_torch.kernels import svgf as ksvgf
+    from nebulae_tpu_torch.kernels import trace as kt
+
+    out = {f"{w}_{suffix}": getattr(kt, f"{f}_{suffix}")
+           for w, f in (("closest", "closest_hit"), ("shadow_closest", "shadow_closest"), ("any", "any_hit"))}
+    if node:
+        out.update(closest_node=kt.closest_hit_node, any_node=kt.any_hit_node)
+    return {**out, "atrous_fwd": ksvgf.atrous_step}
+
+
+def hold_nrc_frame(what, out, ref, ref_name) -> None:
+    """An NRC frame against a reference NRC frame from the same cache: hit
+    mask equal, ldr on >= 99% of pixels within rtol 1e-2 / atol 1e-3,
+    nrc_loss to a relative 1e-3, nrc_query_frac within 0.5% (the NRC
+    tolerance of tests/test_torch_nrc_frame.py)."""
+    import torch
+
+    assert torch.equal(out["hit"], ref["hit"]), f"{what}: hit mask differs from {ref_name}"
+    close = torch.isclose(out["ldr"], ref["ldr"], rtol=1e-2, atol=1e-3).all(dim=-1).float().mean()
+    same = (out["ldr"] == ref["ldr"]).all(dim=-1).float().mean()
+    loss, ref_loss = float(out["nrc_loss"]), float(ref["nrc_loss"])
+    qf, ref_qf = float(out["nrc_query_frac"]), float(ref["nrc_query_frac"])
+    assert float(close) >= 0.99, f"{what}: only {float(close):.4f} of pixels agree with {ref_name}"
+    assert abs(loss - ref_loss) <= 1e-3 * abs(ref_loss), f"{what}: nrc_loss {loss} vs {ref_loss} ({ref_name})"
+    assert abs(qf - ref_qf) <= 0.005, f"{what}: nrc_query_frac {qf} vs {ref_qf} ({ref_name})"
+    log(f"{what}: hit mask equal to {ref_name}'s, {float(close):.6f} of pixels within rtol 1e-2 / atol 1e-3, "
+        f"{float(same):.6f} bit-identical; nrc_loss {loss:.6f} vs {ref_loss:.6f}, query_frac {qf:.6f} vs {ref_qf:.6f}")
+
+
+def _cache_digest(state) -> str:
+    from nebulae_tpu_torch.nrc.mlp import mlp_leaves
+
+    c = state["nrc"]
+    return _digest(*mlp_leaves(c["params"]), *mlp_leaves(c["ema_params"]), *mlp_leaves(c["opt_state"]["mu"]),
+                   *mlp_leaves(c["opt_state"]["nu"]))
+
+
+def nrc_routes_phase(base_cfg, fs, bvh) -> None:
+    """Phase 13: the radiance cache on every frame option, chunk_mode route
+    and width, and after a refit, at 1920x1080 with full outputs.  Every
+    renderer starts from a fresh state (init_cache(seed=0)), so frames of
+    two renderers compare from one cache."""
+    import dataclasses
+
+    import torch
+
+    from nebulae_tpu_torch.bvh.cbuilder import build_bvh_native
+    from nebulae_tpu_torch.engine.renderer import Renderer, init_frame_state
+    from nebulae_tpu_torch.engine.train import make_train_step, split_scene_params
+    from nebulae_tpu_torch.kernels import chunks as kc
+    from nebulae_tpu_torch.kernels import svgf as ksvgf
+    from nebulae_tpu_torch.passes.gbuffer import make_camera_arrays
+    from nebulae_tpu_torch.utils.testscenes import (
+        atrium_camera, bench_camera, huge_scene, large_scene, procedural_envmap, small_atrium,
+    )
+
+    clock = PhaseClock()
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(base_cfg, enable_nrc=True, lean_outputs=False)
+    env = procedural_envmap()
+    cam_obj = bench_camera(fs)
+
+    # 13a. The bench scene with the cache under each frame option: K1 runs
+    # for the primary G-buffer, each sample's jittered one and the training
+    # pass's.
+    r = Renderer(fs, cfg, bvh=bvh, env_map=env)
+    for name, opts in OPTION_CASES.items():
+        c = dataclasses.replace(cfg, **opts)
+        r.update_config(c)
+        r.state = init_frame_state(c, dev)
+        mean_ms, n = nrc_frames(r, cam_obj, _route_wrappers("fat4"), 1, 3, f"nrc-routes {name}")
+        want = 2 + (c.spp if c.jitter_primary else 0)
+        assert n["closest_fat4"] == 4 * want, f"nrc-routes {name}: K1 {n['closest_fat4'] / 4} a frame, not {want}"
+        if name == "jitter_primary":
+            profile_frame(lambda: r.render(cam_obj), FAT4_KERNELS, mean_ms, phases=NRC_PHASES,
+                          what="nrc jitter frame", nested=("nebulae/nrc_mlp",))
+    # K1-K3 on each launch of one frame with all three options, the
+    # training pass's included.
+    hold_launches("nrc all-options frame", walk_launches(lambda: r.render(cam_obj)))
+    del r
+    clock.done("nrc-routes options")
+
+    # 13b. The 247k scene on each chunk_mode, its NRC frames held against
+    # auto's (the single table) from one cache; K6a, K6b and K6c (K1-K3
+    # chained over the subtree chunks) on each launch of one frame.
+    fs_l = large_scene(seed=0)
+    bvh_l = build_bvh_native(fs_l.tri_pos, max_leaf=15)
+    cam_l = bench_camera(fs_l)
+    suffix = {"auto": "fat4", "subtree": "fat4", "tri": "fat4_slots", "paged": "fat4_paged"}
+    firsts, digests = {}, {}
+    default_budget = kc.TRI_CHUNK_TABLE_BUDGET
+    for mode, route in LARGE_ROUTES.items():
+        kc.TRI_CHUNK_TABLE_BUDGET = TRI_BUDGET_LARGE if mode == "tri" else default_budget
+        try:
+            r = Renderer(fs_l, dataclasses.replace(cfg, chunk_mode=mode), bvh=bvh_l)
+        finally:
+            kc.TRI_CHUNK_TABLE_BUDGET = default_budget
+        assert r.route == route, f"chunk_mode={mode} took route {r.route}"
+        keep = {}
+        nrc_frames(r, cam_l, _route_wrappers(suffix[mode]), 1, 2, f"nrc-routes 247k {mode} ({route})",
+                   may_idle=(f"any_{suffix[mode]}",), keep=keep)
+        firsts[mode] = {k: keep[k] for k in ("hit", "ldr", "nrc_loss", "nrc_query_frac")}
+        digests[mode] = _cache_digest(r.state)
+        hold_launches(f"nrc 247k {mode} frame", walk_launches(lambda: r.render(cam_l)))
+        del r, keep
+    ref = firsts["auto"]
+    for k in ("hit", "ldr", "nrc_loss", "nrc_query_frac"):
+        assert torch.equal(firsts["paged"][k], ref[k]), f"247k paged NRC frame differs from auto's in {k}"
+    assert digests["paged"] == digests["auto"], "247k paged cache differs from auto's after 3 frames"
+    log(f"nrc-routes 247k paged: NRC frame equal to auto's byte for byte, cache after 3 frames too "
+        f"(digests {json.dumps(digests)})")
+    for mode in ("tri", "subtree"):
+        hold_nrc_frame(f"nrc-routes 247k {mode}", firsts[mode], ref, "auto")
+    del firsts, ref
+    clock.done("nrc-routes 247k")
+
+    # 13c. The bench scene's fat2 table (K7) against its fat4 table.
+    ref = Renderer(fs, cfg, bvh=bvh).render(cam_obj)
+    r = Renderer(fs, dataclasses.replace(cfg, bvh_wide=2), bvh=bvh)
+    assert r.route == "single" and "fatnodes" in r.tables, r.route
+    keep = {}
+    nrc_frames(r, cam_obj, _route_wrappers("fat"), 1, 2, "nrc-routes fat2", may_idle=("any_fat",), keep=keep)
+    hold_nrc_frame("nrc-routes fat2 139k", keep, ref, "the fat4 NRC frame")
+    hold_launches("nrc fat2 frame", walk_launches(lambda: r.render(cam_obj)))
+    del r, ref, keep
+    clock.done("nrc-routes fat2")
+
+    # 13d. The ~2M scene on the paged route (K6a) and with bvh_wide=2
+    # (fat2 subtree chunks: K7, and K8 on the single-leaf chunks).
+    t0 = time.perf_counter()
+    fs2 = huge_scene(seed=0)
+    bvh2 = build_bvh_native(fs2.tri_pos, max_leaf=15)
+    cam2 = bench_camera(fs2)
+    rp = Renderer(fs2, cfg, bvh=bvh2)
+    log(f"nrc-routes huge: {fs2.num_triangles} triangles, route {rp.route}, scene, BVH and tables "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert rp.route == "paged", rp.route
+    keep_p = {}
+    nrc_frames(rp, cam2, _route_wrappers("fat4_paged"), 1, 1, "nrc-routes 2M paged", may_idle=("any_fat4_paged",),
+               keep=keep_p)
+    keep_p = {k: keep_p[k] for k in ("hit", "ldr", "nrc_loss", "nrc_query_frac")}
+    rf = Renderer(fs2, dataclasses.replace(cfg, bvh_wide=2), bvh=bvh2)
+    chunks = rf.tables.get("chunks", [])
+    log(f"nrc-routes 2M fat2: route {rf.route}, {len(chunks)} chunks ({sum('fatnodes' in c for c in chunks)} "
+        f"fat2, {sum('nodes' in c for c in chunks)} one-node)")
+    assert rf.route == "subtree" and any("nodes" in c for c in chunks), rf.route
+    keep_f = {}
+    nrc_frames(rf, cam2, _route_wrappers("fat", node=True), 1, 1, "nrc-routes 2M fat2",
+               may_idle=("any_fat", "any_node"), keep=keep_f)
+    assert torch.equal(keep_f["hit"], keep_p["hit"]), "2M fat2 NRC frame: hit mask differs from the paged frame"
+    log(f"nrc-routes 2M fat2: hit mask equal to the paged NRC frame's; nrc_loss {float(keep_f['nrc_loss']):.6f} "
+        f"vs {float(keep_p['nrc_loss']):.6f}, query_frac {float(keep_f['nrc_query_frac']):.6f} vs "
+        f"{float(keep_p['nrc_query_frac']):.6f}")
+    hold_launches("nrc 2M fat2 frame", walk_launches(lambda: rf.render(cam2)))
+    del rf, keep_f, keep_p, chunks
+    torch.cuda.empty_cache()
+    clock.done("nrc-routes 2M")
+
+    # 13e. Refit at 2M on the paged fat4 table (a plain frame: the refit
+    # against a rebuild at the frame tolerance).
+    moves2 = instance_moves(fs2)
+    times = timed_updates(lambda: rp.update_instances(moves2))
+    log(f"nrc-routes 2M update_instances (paged fat4): first call {times[0]:.3f} s, then "
+        f"{statistics.mean(times[1:]):.2f} ms (runs {[round(t, 2) for t in times[1:]]})")
+    profile_frame(lambda: rp.update_instances(moves2), (), statistics.mean(times[1:]), phases=(),
+                  what="2M update_instances")
+    plain = dataclasses.replace(cfg, enable_nrc=False)
+    rp.update_config(plain)
+    rp.state = init_frame_state(plain, dev)
+    paged = _route_wrappers("fat4_paged")
+    out, mean_ms, ftimes, _ = _frames(rp, cam2, paged, n_timed=1)
+    t0 = time.perf_counter()
+    ref_r = rebuilt(fs2, rp)
+    log(f"nrc-routes 2M rebuild (BVH and tables) {time.perf_counter() - t0:.2f} s, route {ref_r.route}")
+    ref, ref_ms, _, _ = _frames(ref_r, cam2, paged, n_timed=1)
+    log(f"nrc-routes 2M refit frame {mean_ms:.2f} ms, rebuilt {ref_ms:.2f} ms")
+    hold_frame("nrc-routes 2M refit", out, ref, "the rebuild")
+    del rp, ref_r, out, ref, fs2, bvh2
+    torch.cuda.empty_cache()
+    clock.done("nrc-routes 2M refit")
+
+    # 13f. Refit under the cache: the bench scene's fat4 table and the 247k
+    # subtree route (repacked to paged), NRC frames against a rebuild from
+    # the same cache.
+    subtree = dataclasses.replace(cfg, chunk_mode="subtree")
+    for tag, fs_, bvh_, cam_, c in (("139k fat4", fs, bvh, cam_obj, cfg),
+                                     ("247k subtree", fs_l, bvh_l, cam_l, subtree)):
+        r = Renderer(fs_, c, bvh=bvh_)
+        route, cache, aabb = r.route, r.state["nrc"], r.scene["aabb_min"].clone()
+        moves = instance_moves(fs_)
+        times = timed_updates(lambda: r.update_instances(moves))
+        assert r.state["nrc"] is cache and torch.equal(r.scene["aabb_min"], aabb), f"{tag}: refit lost the cache"
+        assert r.route == ("paged" if route == "subtree" else route), r.route
+        r.state = init_frame_state(c, dev)
+        out = r.render(cam_)
+        ref_r = rebuilt(fs_, r)
+        ref = ref_r.render(cam_)
+        log(f"nrc-routes refit {tag}: route {route} -> {r.route}, update_instances first call {times[0]:.3f} s, "
+            f"then {statistics.mean(times[1:]):.2f} ms; rebuild route {ref_r.route}")
+        hold_nrc_frame(f"nrc-routes refit {tag}", out, ref, "the rebuild")
+        del r, ref_r, out, ref
+    clock.done("nrc-routes refit")
+
+    # 13g. One NRC train step on the 247k subtree route, K5 on its launches.
+    r = Renderer(fs_l, subtree, bvh=bvh_l)
+    params, frozen = split_scene_params(r.scene)
+    params["sun"] = r.sun
+    opt = _recording_adam()
+    step, _ = make_train_step(r.cfg, frozen, r.tables, optimizer=opt, device=dev)
+    target = torch.zeros((HEIGHT, WIDTH, 3), dtype=torch.float32, device=dev)
+    recs, uninstall = _spy(ksvgf, "atrous_step_bwd")
+    try:
+        t0 = time.perf_counter()
+        _p, _o, _s, loss, img = step(params, opt.init(params), make_camera_arrays(cam_l, WIDTH, HEIGHT, dev),
+                                     init_frame_state(r.cfg, dev), target)
+        float(loss)
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        uninstall()
+    grads = _grad_report(opt)
+    assert bool(torch.isfinite(loss)) and bool(torch.isfinite(img).all()), "non-finite NRC train step"
+    for name, g in grads.items():
+        assert bool(torch.isfinite(g).all()), f"non-finite gradient of {name}"
+    assert len(recs) == cfg.svgf_atrous_passes, f"K5 launched {len(recs)} times"
+    err = 0.0
+    for a in recs:
+        err = max(err, float((ksvgf.atrous_step_bwd(*a) - ksvgf.atrous_step_bwd_plain(*a)).abs().max()))
+    assert err == 0.0, f"nrc 247k subtree step: K5 max error {err}"
+    log(f"nrc-routes 247k subtree train step: {step_ms:.2f} ms (first step), loss {float(loss):.6f}, gradients "
+        f"finite; K5 on its {len(recs)} launches max err 0")
+    del r, params, frozen, opt, step, recs, img, fs_l, bvh_l
+    torch.cuda.empty_cache()
+    clock.done("nrc-routes step")
+
+    # 13h. 64x64 NRC frames with jitter and the env-map sky on the GPU
+    # against the CPU plain path.
+    small = small_atrium(0)
+    small_nrc_check(small, atrium_camera(small), what="nrc-routes small frames (jitter, env map)",
+                    options=dict(jitter_primary=True, enable_envmap=True), env_map=env)
+    clock.done("nrc-routes small")
 
 
 # Phase 11: the app on a glTF scene.  3 warm-up and 8 timed frames.
@@ -3307,7 +3663,6 @@ def main() -> int:
     clock.done("nrc")
 
     # 11. app: a glTF scene through the app shell
-    del fs, bvh
     torch.cuda.empty_cache()
     app_phase(smi)
     clock.done("app")
@@ -3316,7 +3671,12 @@ def main() -> int:
     dist_phase(smi)
     clock.done("dist")
 
-    # 13. summary
+    # 13. nrc-routes: the cache on every frame option, route and width, and
+    # after a refit
+    nrc_routes_phase(cfg, fs, bvh)
+    clock.done("nrc-routes")
+
+    # 14. summary
     sources = {
         "closest_fat4": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1202"),
         "shadow_closest_fat4": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1415"),
