@@ -142,7 +142,28 @@ Phases (any failure raises and exits non-zero):
               the same cache; an NRC train step on the 247k subtree route
               (K5 on each launch); 64x64 NRC frames with jitter and the
               env-map sky on the GPU against the CPU plain path
- 14. summary  one {"kernels": [...]} line, then the device line last
+ 14. oracle   the reference tracer (nebulae_tpu_torch.ref.tracer, eager
+              brute force, no kernel): on the card against itself on the
+              CPU (the 64x64 small atrium, defaults and all three options:
+              RNG states equal, primary tri equal away from t ties,
+              radiance within rtol 1e-5 / atol 1e-6 but for drifted or
+              flipped pixels); the card's 64x64 frames (direct, path
+              traced under each option, on fat4 through K1-K3 and fat2
+              through K7) against the CPU reference tracer; frames at scale
+              against the reference tracer on the card (the bench scene at
+              256x256, 4 bounces; the ~247k scene at 128x128 on subtree,
+              tri and paged; the ~2M scene at 64x64 paged and with
+              bvh_wide=2), each frame's launch counts read around it;
+              primary visibility of the 1080p bench frame (K1's hit mask
+              and depth, every 4th row where the whole frame would take
+              the reference past 60 s); and the 64x64 frame's gradients on
+              the card (three base colours, the sun's radiance) against
+              central differences of the CPU reference tracer.  Each line
+              logs its shares, hit-mask differences, max error and the
+              frame's and the reference's seconds, and the reference's pair
+              tests per second; >= 99.9% of pixels and hit decisions must
+              agree
+ 15. summary  one {"kernels": [...]} line, then the device line last
 Each phase logs its seconds; each profile lists every launch of a port
 kernel with its grid, block, registers and time.  Imports nothing of JAX or
 of the JAX package.
@@ -2905,6 +2926,340 @@ def _dist_phase(smi: str, tmp: Path) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the reference tracer
+# ---------------------------------------------------------------------------
+
+ORACLE_FLOOR = 0.999  # share of pixels and of hit decisions that must agree
+ORACLE_DRIFT = 1e-4  # relative error past which a pixel's path took another turn
+REF_ROWS_LIMIT_S = 60.0  # past this predicted time, the 1080p G-buffer holds every 4th row
+
+
+class RefPairs:
+    """Times the reference tracer's calls made under `run` and counts their
+    ray-triangle pair tests (rays x triangles of each intersect call)."""
+
+    def __init__(self):
+        from nebulae_tpu_torch.ref import tracer as rt
+
+        self.rt, self.pairs, self.seconds, self.orig, self.active = rt, 0, 0.0, {}, False
+        for name in ("intersect_closest", "intersect_any"):
+            fn = self.orig[name] = getattr(rt, name)
+
+            def counted(o, d, tri_pos, *a, _fn=fn, **k):
+                if self.active:
+                    self.pairs += int(o.shape[0]) * int(tri_pos.shape[0])
+                return _fn(o, d, tri_pos, *a, **k)
+
+            setattr(rt, name, counted)
+
+    def run(self, fn):
+        """fn()'s result and seconds (device synchronised)."""
+        self.active = True
+        try:
+            out, s = _seconds(fn)
+        finally:
+            self.active = False
+        self.seconds += s
+        return out, s
+
+    def close(self):
+        for name, fn in self.orig.items():
+            setattr(self.rt, name, fn)
+
+
+def _seconds(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _ref_outliers(got, ref):
+    """(drifted, flipped) pixel counts of two [H, W, 3] reference images
+    outside rtol 1e-5 / atol 1e-6, split at ORACLE_DRIFT relative, and the
+    max abs error."""
+    import torch
+
+    bad = ~torch.isclose(got, ref, rtol=1e-5, atol=1e-6).all(dim=-1)
+    rel = ((got - ref).abs() / ref.abs().clamp(min=1e-6)).amax(dim=-1)
+    flipped = bad & (rel > ORACLE_DRIFT)
+    return int((bad & ~flipped).sum()), int(flipped.sum()), float((got - ref).abs().max())
+
+
+def _hits_agree(what, g, c):
+    """Closest hits on the card (g) against the CPU (c): hit masks equal,
+    tri equal away from t ties within 1e-6 relative, t, u and v within
+    rtol 1e-5 / atol 1e-6."""
+    import torch
+
+    g = {k: v.cpu() for k, v in g.items()}
+    hit = c["tri"] >= 0
+    assert torch.equal(g["tri"] >= 0, hit), f"{what}: hit masks differ"
+    for k in ("t", "u", "v"):
+        torch.testing.assert_close(g[k][hit], c[k][hit], rtol=1e-5, atol=1e-6, msg=f"{what}: {k}")
+    differ = hit & (g["tri"] != c["tri"])
+    tie = (g["t"][differ] - c["t"][differ]).abs() <= 1e-6 * c["t"][differ].abs()
+    assert bool(tie.all()), f"{what}: tri differs away from a tie"
+    return int(differ.sum())
+
+
+def hold_oracle(what, out, ref, gbuf, rtol, atol, frame_s, ref_s, rows=None):
+    """A frame's hdr and primary hits against the reference tracer's image
+    and G-buffer (any devices): >= ORACLE_FLOOR of pixels within rtol /
+    atol and of hit decisions equal.  Logs the shares, the hit-mask
+    differences, the max error and both seconds (ref_s 0: a reference
+    made for an earlier line)."""
+    import torch
+
+    hdr = out["hdr"].float().cpu()
+    h, w = hdr.shape[0], hdr.shape[1]
+    ref = ref.float().cpu().reshape(h, w, 3)
+    hit, ref_hit = out["hit"].cpu().reshape(-1), gbuf["hit"].cpu().reshape(-1)
+    close = torch.isclose(hdr, ref, rtol=rtol, atol=atol).all(dim=-1).reshape(-1)
+    hit_share = float((hit == ref_hit).float().mean())
+    px_share = float(close.float().mean())
+    err = float((hdr - ref).abs().max())
+    outl = torch.nonzero(~close)[:, 0][:4].tolist()
+    log(f"oracle {what}: {px_share:.6f} of pixels within rtol {rtol:g} / atol {atol:g}, hit masks differ on "
+        f"{int((hit != ref_hit).sum())} of {h * w}, max abs err {err:.3g}, frame {frame_s:.3f} s, "
+        + (f"reference {ref_s:.3f} s" if ref_s else "reference as on a line above")
+        + (f"; first outliers at {[divmod(i, w) for i in outl]}" if outl else ""))
+    assert px_share >= ORACLE_FLOOR and hit_share >= ORACLE_FLOOR, \
+        f"{what}: {px_share:.6f} of pixels and {hit_share:.6f} of hit decisions agree with the reference"
+
+
+def _frame(r, cam_obj, wrappers, expect, what):
+    """One frame of Renderer r with the launch counts zeroed before it and
+    read after: every wrapper in `expect` must have launched.  Returns
+    (outputs, seconds, launches)."""
+    _zero(wrappers)
+    out, s = _seconds(lambda: r.render(cam_obj))
+    n = {name: fn.launches for name, fn in wrappers.items() if fn.launches}
+    missing = [e for e in expect if not n.get(e)]
+    assert not missing, f"{what}: kernels not launched: {missing} (launched {n})"
+    return out, s, n
+
+
+def oracle_phase(fs_bench, bvh_bench) -> None:
+    """Phase 14: the port's reference tracer on the card against itself on
+    the CPU, the card's frames against the CPU reference tracer, the card's
+    frames at scale against the reference tracer on the card, and the
+    gradients on the card against central differences of the CPU
+    reference tracer."""
+    import dataclasses
+
+    import torch
+
+    from nebulae_tpu_torch.bvh.cbuilder import build_bvh_native
+    from nebulae_tpu_torch.config import RenderConfig, SunLight
+    from nebulae_tpu_torch.engine.renderer import Renderer, init_frame_state, render_frame
+    from nebulae_tpu_torch.kernels import chunks as kc
+    from nebulae_tpu_torch.kernels import trace as kt
+    from nebulae_tpu_torch.passes.gbuffer import camera_rays, make_camera_arrays
+    from nebulae_tpu_torch.ref import tracer as rt
+    from nebulae_tpu_torch.utils.testscenes import (
+        atrium_camera, bench_camera, huge_scene, large_scene, procedural_envmap, small_atrium,
+    )
+
+    dev = torch.device("cuda")
+    clock = PhaseClock()
+    wrappers = {f.__name__: f for f in kt.WRAPPERS}
+    fat4 = ("closest_hit_fat4", "shadow_closest_fat4", "any_hit_fat4")
+    fat2 = ("closest_hit_fat", "shadow_closest_fat", "any_hit_fat")
+    counter = RefPairs()
+    try:
+        # 14a. The reference tracer on the card against itself on the CPU.
+        fs = small_atrium(0)
+        cam_obj = atrium_camera(fs)
+        env = procedural_envmap()
+        arrays = {**fs.device_arrays(), "env_map": env}
+        on_card = {k: torch.as_tensor(v).to(dev) for k, v in arrays.items()}
+        sun_c, sun_g = SunLight.default("cpu"), SunLight.default(dev)
+        s = 64
+        base = RenderConfig(width=s, height=s, spp=2, max_bounces=3, enable_svgf=False, enable_tonemap=False)
+        options = {
+            "defaults": {}, "jitter": dict(jitter_primary=True), "fast": dict(fast_bounce_shading=True),
+            "envmap": dict(enable_envmap=True),
+            "all": dict(jitter_primary=True, fast_bounce_shading=True, enable_envmap=True),
+        }
+        cpu_ref = {}
+        for name in ("defaults", "all"):
+            cfg = dataclasses.replace(base, **options[name])
+            (img_g, st_g), t_g = counter.run(lambda: rt.path_trace(on_card, cam_obj, cfg, sun_g, device=dev,
+                                                                  return_rng=True))
+            (img_c, st_c), t_c = _seconds(lambda: rt.path_trace(arrays, cam_obj, cfg, sun_c, device="cpu",
+                                                              return_rng=True))
+            cpu_ref[name] = img_c
+            assert torch.equal(st_g.cpu(), st_c), f"reference {name}: RNG states differ between card and CPU"
+            # The same primary rays on both devices (each device's pow
+            # rounds a direction differently in its last bit).
+            o_c, d_c = camera_rays(make_camera_arrays(cam_obj, s, s, "cpu"), s, s)
+            ties = _hits_agree(f"reference {name} primary hits",
+                               rt.intersect_closest(o_c.to(dev), d_c.to(dev), on_card["tri_pos"], device=dev),
+                               rt.intersect_closest(o_c, d_c, arrays["tri_pos"], device="cpu"))
+            drifted, flipped, err = _ref_outliers(img_g.cpu(), img_c)
+            log(f"oracle reference card vs CPU {name} ({s}x{s}, spp 2, 3 bounces): RNG states equal, tri differs "
+                f"on {ties} t ties, of {s * s} pixels {drifted} drifted and {flipped} flipped past rtol 1e-5 / atol "
+                f"1e-6, max abs err {err:.3g}; card {t_g:.3f} s, CPU {t_c:.3f} s")
+            assert flipped <= 1e-3 * s * s and drifted <= 5e-3 * s * s, f"reference {name}: card vs CPU"
+        clock.done("oracle reference card vs CPU")
+
+        # 14b. The card's frames (K1-K3 on fat4, K7 on fat2) against the
+        # CPU reference tracer.
+        cfg_d = RenderConfig(width=s, height=s, enable_gi=False, enable_svgf=False, enable_tonemap=False)
+        r = Renderer(fs, cfg_d, env_map=env)
+        out, t_f, _ = _frame(r, cam_obj, wrappers, ("closest_hit_fat4", "any_hit_fat4"), "direct")
+        ref, t_r = _seconds(lambda: rt.render_direct(arrays, cam_obj, cfg_d, sun_c, device="cpu"))
+        gbuf = rt.render_gbuffer(arrays, cam_obj, s, s, texture_mips=True, device="cpu")
+        hold_oracle("direct atrium on fat4 (K1, K3) vs CPU reference", out, ref, gbuf, 1e-4, 1e-4, t_f, t_r)
+        for name, opts in options.items():
+            cfg = dataclasses.replace(base, **opts)
+            r.update_config(cfg)
+            r.state = init_frame_state(cfg, dev)
+            out, t_f, n = _frame(r, cam_obj, wrappers, fat4, f"path-traced {name}")
+            t_r = 0.0
+            if name not in cpu_ref:
+                cpu_ref[name], t_r = _seconds(lambda: rt.path_trace(arrays, cam_obj, cfg, sun_c, device="cpu"))
+            hold_oracle(f"path-traced atrium {name} on fat4 (launches {n}) vs CPU reference", out, cpu_ref[name],
+                        gbuf, 1e-3, 2e-4, t_f, t_r)
+        r2 = Renderer(fs, dataclasses.replace(base, bvh_wide=2), env_map=env)
+        assert "fatnodes" in r2.tables, r2.route
+        out, t_f, n = _frame(r2, cam_obj, wrappers, fat2, "fat2")
+        hold_oracle(f"path-traced atrium defaults on fat2 (launches {n}) vs CPU reference", out, cpu_ref["defaults"],
+                    gbuf, 1e-3, 2e-4, t_f, 0.0)
+        del r, r2
+        clock.done("oracle frames vs CPU reference")
+
+        # 14c. Frames at scale against the reference tracer on the card.
+        def at_scale(tag, fs_s, cam_s, renderers, cfg):
+            arrays_s = renderers[0][1].scene
+            (ref_s, t_r) = counter.run(lambda: rt.path_trace(arrays_s, cam_s, cfg, renderers[0][1].sun, device=dev))
+            gbuf_s = rt.render_gbuffer(arrays_s, cam_s, cfg.width, cfg.height, texture_mips=cfg.texture_mips,
+                                       device=dev)
+            for name, rr, expect in renderers:
+                out_s, t_f, n = _frame(rr, cam_s, wrappers, expect, f"{tag} {name}")
+                hold_oracle(f"{tag} on {name} (launches {n}) vs the reference on the card", out_s, ref_s, gbuf_s,
+                            1e-3, 2e-4, t_f, t_r)
+                t_r = 0.0
+
+        cfg_b = RenderConfig(width=256, height=256, max_bounces=BOUNCES, enable_svgf=False, enable_tonemap=False)
+        pairs0, sec0 = counter.pairs, counter.seconds
+        rb = Renderer(fs_bench, cfg_b, bvh=bvh_bench)
+        at_scale(f"bench {fs_bench.num_triangles} tris 256x256", fs_bench, bench_camera(fs_bench),
+                 [("fat4", rb, fat4)], cfg_b)
+        rate = (counter.pairs - pairs0) / (counter.seconds - sec0)
+        log(f"oracle reference on the card: {counter.pairs - pairs0} pair tests in "
+            f"{counter.seconds - sec0:.3f} s on the bench scene, {rate / 1e9:.3f} G pair tests/s")
+        del rb
+        clock.done("oracle bench 256")
+
+        fs_l = large_scene(seed=0)
+        bvh_l = build_bvh_native(fs_l.tri_pos, max_leaf=15)
+        cfg_l = dataclasses.replace(cfg_b, width=128, height=128)
+        default_budget = kc.TRI_CHUNK_TABLE_BUDGET
+        routes = []
+        for mode, suffix in (("subtree", ""), ("tri", "_slots"), ("paged", "_paged")):
+            kc.TRI_CHUNK_TABLE_BUDGET = TRI_BUDGET_LARGE if mode == "tri" else default_budget
+            try:
+                rl = Renderer(fs_l, dataclasses.replace(cfg_l, chunk_mode=mode), bvh=bvh_l)
+            finally:
+                kc.TRI_CHUNK_TABLE_BUDGET = default_budget
+            assert rl.route == mode, (mode, rl.route)
+            routes.append((mode, rl, tuple(f + suffix for f in fat4)))
+        at_scale(f"large {fs_l.num_triangles} tris 128x128", fs_l, bench_camera(fs_l), routes, cfg_l)
+        del routes, rl, fs_l, bvh_l
+        clock.done("oracle large 128")
+
+        fs_h = huge_scene(seed=0)
+        bvh_h = build_bvh_native(fs_h.tri_pos, max_leaf=15)
+        cfg_h = dataclasses.replace(cfg_b, width=64, height=64)
+        rp = Renderer(fs_h, cfg_h, bvh=bvh_h)
+        rf = Renderer(fs_h, dataclasses.replace(cfg_h, bvh_wide=2), bvh=bvh_h)
+        assert rp.route == "paged" and rf.route == "subtree", (rp.route, rf.route)
+        at_scale(f"huge {fs_h.num_triangles} tris 64x64", fs_h, bench_camera(fs_h),
+                 [("paged", rp, tuple(f + "_paged" for f in fat4)),
+                  ("fat2 subtree", rf, fat2 + ("closest_hit_node",))], cfg_h)
+        del rp, rf, fs_h, bvh_h
+        torch.cuda.empty_cache()
+        clock.done("oracle huge 64")
+
+        # 14d. Primary visibility of the 1080p bench frame: K1's hit mask
+        # and depth against the reference G-buffer on the card.
+        cfg_p = RenderConfig(width=WIDTH, height=HEIGHT, max_bounces=1, enable_svgf=False, enable_tonemap=False)
+        rp = Renderer(fs_bench, cfg_p, bvh=bvh_bench)
+        cam_b = bench_camera(fs_bench)
+        out, t_f, n = _frame(rp, cam_b, wrappers, ("closest_hit_fat4",), "1080p primary")
+        predicted = WIDTH * HEIGHT * fs_bench.num_triangles / rate
+        step = 4 if predicted > REF_ROWS_LIMIT_S else 1
+        o, d = camera_rays(make_camera_arrays(cam_b, WIDTH, HEIGHT, dev), WIDTH, HEIGHT)
+        rows = torch.arange(0, HEIGHT, step, device=dev)
+        sel = (rows[:, None] * WIDTH + torch.arange(WIDTH, device=dev)[None]).reshape(-1)
+        hit_r, t_r = counter.run(lambda: rt.intersect_closest(o[sel], d[sel], rp.scene["tri_pos"], device=dev))
+        hit = out["hit"].reshape(-1)[sel]
+        depth = out["depth"].reshape(-1)[sel]
+        ref_hit = hit_r["tri"] >= 0
+        same = float((hit == ref_hit).float().mean())
+        both = hit & ref_hit
+        dshare = float(torch.isclose(depth[both], hit_r["t"][both], rtol=1e-5, atol=0.0).float().mean())
+        derr = float((depth[both] - hit_r["t"][both]).abs().max())
+        log(f"oracle 1080p primary visibility of the bench frame (K1, launches {n}): "
+            + ("every 4th row held (" if step > 1 else "every row held (")
+            + f"{sel.numel()} rays; the whole frame would take ~{predicted:.0f} s at the measured rate), "
+            f"hit masks agree on {same:.6f} ({int((hit != ref_hit).sum())} differ), depth within rtol 1e-5 on "
+            f"{dshare:.6f} of hits, max abs depth err {derr:.3g}; frame {t_f:.3f} s, reference {t_r:.3f} s")
+        assert same >= ORACLE_FLOOR and dshare >= ORACLE_FLOOR, "1080p primary visibility against the reference"
+        del rp, o, d, out
+        clock.done("oracle 1080p primary")
+
+        # 14e. Gradients on the card against central differences of the CPU
+        # reference tracer: d mean(hdr) / d mat_base_color and sun.radiance.
+        cfg_g = RenderConfig(width=s, height=s, max_bounces=2, enable_svgf=False, enable_tonemap=False)
+        rg = Renderer(fs, cfg_g)
+        bc = rg.scene["mat_base_color"].clone().requires_grad_(True)
+        rad = rg.sun.radiance.clone().requires_grad_(True)
+        sun = SunLight(rg.sun.direction, rad, rg.sun.tan_half_angle, rg.sun.sky_color)
+        _zero(wrappers)
+        (g_bc, g_rad), t_g = _seconds(lambda: torch.autograd.grad(render_frame(
+            {**rg.scene, "mat_base_color": bc}, rg.tables, sun, make_camera_arrays(cam_obj, s, s, dev),
+            init_frame_state(cfg_g, dev), cfg_g)[0]["hdr"].mean(), [bc, rad]))
+        assert all(wrappers[k].launches for k in fat4), "the gradient's frame did not launch K1-K3"
+        g_bc, g_rad = g_bc.cpu(), g_rad.cpu()
+        eps, worst = 1e-3, 0.0
+        plain = fs.device_arrays()
+        t0 = time.perf_counter()
+        for kind, idx in [("mat_base_color", (0, 0)), ("mat_base_color", (1, 1)), ("mat_base_color", (2, 2)),
+                          ("radiance", 0), ("radiance", 1), ("radiance", 2)]:
+            losses = []
+            for sign in (1.0, -1.0):
+                if kind == "radiance":
+                    rr = sun_c.radiance.clone()
+                    rr[idx] += sign * eps
+                    loss_in = (plain, SunLight(sun_c.direction, rr, sun_c.tan_half_angle, sun_c.sky_color))
+                else:
+                    b = plain["mat_base_color"].copy()
+                    b[idx] += sign * eps
+                    loss_in = ({**plain, "mat_base_color": b}, sun_c)
+                losses.append(float(rt.path_trace(loss_in[0], cam_obj, cfg_g, loss_in[1], device="cpu").double().mean()))
+            fd = (losses[0] - losses[1]) / (2 * eps)
+            got = float(g_rad[idx] if kind == "radiance" else g_bc[idx])
+            worst = max(worst, abs(got - fd) / max(1.0, abs(fd)))
+            log(f"oracle gradient d mean(hdr) / d {kind}{list(idx) if kind != 'radiance' else [idx]}: card {got:.6g}, "
+                f"CPU reference central difference {fd:.6g}")
+            assert abs(got - fd) < 2e-3 * max(1.0, abs(fd)), f"gradient {kind} {idx}: card {got}, fd {fd}"
+        assert float(g_bc.abs().max()) > 1e-4 and bool((g_rad > 0).all()), "gradients vanish"
+        log(f"oracle gradients ({s}x{s}, 2 bounces): worst |g - fd| / max(1, |fd|) {worst:.3g} (bound 2e-3); "
+            f"card forward and backward {t_g:.3f} s, CPU central differences {time.perf_counter() - t0:.3f} s")
+        clock.done("oracle gradients")
+        log(f"oracle reference on the card in all: {counter.pairs} pair tests in {counter.seconds:.3f} s, "
+            f"{counter.pairs / counter.seconds / 1e9:.3f} G pair tests/s")
+    finally:
+        counter.close()
+
+
 def bench_renderer(width=WIDTH, height=HEIGHT, bvh=None):
     """The ~139k-triangle bench scene's BVH (the C++ builder, unless one is
     given) and a Renderer of the main path's configuration -> (fs, bvh,
@@ -3676,7 +4031,11 @@ def main() -> int:
     nrc_routes_phase(cfg, fs, bvh)
     clock.done("nrc-routes")
 
-    # 14. summary
+    # 14. oracle: the reference tracer, and the frames and gradients held to it
+    oracle_phase(fs, bvh)
+    clock.done("oracle")
+
+    # 15. summary
     sources = {
         "closest_fat4": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1202"),
         "shadow_closest_fat4": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1415"),

@@ -178,3 +178,38 @@ def build_bvh(tri_pos: np.ndarray, max_leaf: int = MAX_LEAF) -> FlatBVH:
 
     assign(0, n)
     return FlatBVH(node_lo, node_hi, node_first, node_count, node_skip, node_right, tri_index)
+
+
+def validate_bvh(bvh: FlatBVH, tri_pos: np.ndarray) -> None:
+    """Check a tree against its triangles: tri_index is a permutation,
+    each leaf's box holds its triangles, each inner node's left child
+    follows it in pre-order, its box holds its children's, and the skip
+    links chain as the walks expect, within 1e-4.  Raises AssertionError
+    on the first broken rule."""
+    tol = 1e-4
+    tri_pos = np.asarray(tri_pos, np.float32)
+    t = tri_pos.shape[0]
+    lo, hi = np.asarray(bvh.node_lo), np.asarray(bvh.node_hi)
+    first, count = np.asarray(bvh.node_first), np.asarray(bvh.node_count)
+    right, skip = np.asarray(bvh.node_right), np.asarray(bvh.node_skip)
+    if not np.array_equal(np.sort(bvh.tri_index), np.arange(t)):
+        raise AssertionError("tri permutation broken")
+    tlo, thi = tri_pos.min(axis=1), tri_pos.max(axis=1)
+    leaf = np.nonzero(count > 0)[0]
+    per_leaf = count[leaf]
+    owner = np.repeat(leaf, per_leaf)
+    slot = np.repeat(first[leaf], per_leaf) + np.arange(per_leaf.sum()) - np.repeat(np.cumsum(per_leaf) - per_leaf,
+                                                                                      per_leaf)
+    tids = np.asarray(bvh.tri_index)[slot]
+    if not ((tlo[tids] >= lo[owner] - tol).all() and (thi[tids] <= hi[owner] + tol).all()):
+        raise AssertionError("a leaf's box does not hold its triangles")
+    inner = np.nonzero(count == 0)[0]
+    if t == 0:
+        return
+    left, rgt = first[inner], right[inner]
+    if not (left == inner + 1).all():
+        raise AssertionError("left child must follow parent in pre-order")
+    if not ((lo[inner] <= lo[left] + tol).all() and (hi[inner] >= hi[rgt] - tol).all()):
+        raise AssertionError("an inner box does not hold its children's")
+    if not ((skip[left] == rgt).all() and (skip[rgt] == skip[inner]).all()):
+        raise AssertionError("skip links broken")

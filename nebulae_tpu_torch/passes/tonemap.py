@@ -1,11 +1,13 @@
 """ACES filmic tonemapping (Hill's fitted RRT+ODT), elementwise.
 
 Same arithmetic as `nebulae_tpu/passes/tonemap.py`: the 3x3 colour
-transforms are unrolled to multiply-adds instead of matmuls.
+transforms are unrolled to multiply-adds instead of matmuls, on tensors
+(`aces_tonemap`) or NumPy arrays (`aces_tonemap_np`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _ACES_IN = (
@@ -41,3 +43,12 @@ def aces_tonemap(hdr):
     v = [_rrt_odt_fit(c) for c in v]
     v = _mat3(_ACES_OUT, *v)
     return torch.clamp(torch.stack(v, dim=-1), 0.0, 1.0)
+
+
+def aces_tonemap_np(hdr):
+    """aces_tonemap on a NumPy array (float32)."""
+    hdr = np.asarray(hdr, np.float32)
+    v = _mat3(_ACES_IN, hdr[..., 0], hdr[..., 1], hdr[..., 2])
+    v = [_rrt_odt_fit(c) for c in v]
+    v = _mat3(_ACES_OUT, *v)
+    return np.clip(np.stack(v, axis=-1), 0.0, 1.0)

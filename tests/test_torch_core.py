@@ -259,8 +259,9 @@ def test_mip_level_from_uv_matches(scene_pair):
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port (in a fresh interpreter) leaves
     jax, nebulae_tpu, cv2 and PIL out of sys.modules, the radiance cache's,
-    the glTF loader's, the app shell's and the distribution's modules
-    included; chip_smoke.py imports none of them."""
+    the glTF loader's, the app shell's, the distribution's and the
+    reference tracer's modules included; chip_smoke.py imports none of
+    them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import nebulae_tpu_torch as p\n"
@@ -276,6 +277,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "nrc += ['nebulae_tpu_torch.' + m for m in ('app', 'core.gltf', 'utils.png', 'utils.checkpoint', "
         "'utils.crashdump', 'utils.display', 'utils.golden', 'utils.logging', 'utils.metrics', 'utils.profiling')]\n"
         "nrc += ['nebulae_tpu_torch.dist.' + m for m in ('mesh', 'comm', 'stats', 'runner', 'dryrun')]\n"
+        "nrc += ['nebulae_tpu_torch.ref', 'nebulae_tpu_torch.ref.tracer']\n"
         "assert all(m in sys.modules for m in nrc), nrc\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
