@@ -1,0 +1,7 @@
+"""Share of its roofline the ray casting of a frame reaches, in % (benchmark/work/trace.py, the published H100 peaks)."""
+
+from benchmark.layers import trace_roofline
+
+
+def read(run):
+    return trace_roofline(run, "frames")
