@@ -1,9 +1,11 @@
 """Application shell: CLI entry point and render loop (as `nebulae_tpu/app.py`).
 
 Parse the arguments, load a glTF scene, run the frame loop with an orbiting
-camera, present each frame to an output directory, stream JSONL metrics,
-touch a heartbeat file, checkpoint the frame state every N frames and
-resume from a checkpoint.  Runs on the GPU unless `--device cpu` is given.
+camera, present each frame to an output directory, stream JSONL metrics
+(and beside them, in <metrics>.counters.jsonl, the program's counters that
+each frame advanced, summed from the first frame: lanes, rays and a-trous
+passes; utils/metrics.py), touch a heartbeat file, checkpoint the frame
+state every N frames and resume from a checkpoint.  Runs on the GPU unless `--device cpu` is given.
 `run(argv)` is the loop and returns its Renderer; `main(argv)` is the
 command's entry point.
 
@@ -93,7 +95,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "svgf_alpha/nrc/nrc_lr/nrc_train_iterations/throughput_threshold "
                         "through Renderer.update_config")
     p.add_argument("--metrics", default=None,
-                   help="JSONL metrics stream path (default <out>/metrics.jsonl; 'off' disables)")
+                   help="JSONL metrics stream path (default <out>/metrics.jsonl; the program's counters "
+                        "go beside it, to <stem>.counters.jsonl; 'off' disables both)")
     p.add_argument("--crash-dir", default=None,
                    help="crash-dump directory (default $NEBULAE_CRASH_DIR or /tmp/nebulae_crash)")
     p.add_argument("--heartbeat", default=None,
@@ -205,7 +208,7 @@ def _run(args, world):
     from nebulae_tpu_torch.utils.crashdump import Heartbeat
     from nebulae_tpu_torch.utils.display import FrameWriter
     from nebulae_tpu_torch.utils.logging import log_info
-    from nebulae_tpu_torch.utils.metrics import MetricsLogger
+    from nebulae_tpu_torch.utils.metrics import MetricsLogger, totals
     from nebulae_tpu_torch.utils.profiling import FrameTimer, profile_trace
 
     device = resolve_device(args.device) if world is None else world.device
@@ -286,6 +289,9 @@ def _run(args, world):
     sfx = "" if is_host0 else f".r{world.rank}"
     metrics_path = args.metrics or str(Path(args.out) / f"metrics{sfx}.jsonl")
     metrics = MetricsLogger(None if metrics_path == "off" else metrics_path)
+    # The program's counters go to a stream of their own, so the metrics
+    # rows keep the JAX app's format.
+    counters = MetricsLogger(None if metrics_path == "off" else Path(metrics_path).with_suffix(".counters.jsonl"))
     heartbeat = Heartbeat(args.heartbeat or Path(args.out) / f"heartbeat{sfx}")
 
     base_tri_pos = np.asarray(fs.tri_pos) if args.animate else None
@@ -332,6 +338,7 @@ def _run(args, world):
                 phase = 2.0 * np.pi * i / max(args.frames, 1)
                 off = np.array([0.0, args.animate * float(hi[1] - lo[1]) * np.sin(phase), 0.0], np.float32)
                 renderer.update_geometry(base_tri_pos + off)
+            before = totals()
             t0 = time.perf_counter()
             out = renderer.render(cam.camera())
             if args.accumulate:
@@ -353,6 +360,10 @@ def _run(args, world):
                 metrics.scalar("nrc_query_frac", float(out["nrc_query_frac"]))
             metrics.count("frames")
             metrics.flush(step=i)
+            for name, n in totals().items():
+                if n != before.get(name, 0):
+                    counters.count(name, n - before.get(name, 0))
+            counters.flush(step=i)
             if args.checkpoint_dir and (i + 1) % args.checkpoint_every == 0:
                 save_checkpoint(args.checkpoint_dir, renderer.state, step=i + 1, world=world)
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from nebulae_tpu_torch.utils.profiling import span_backward
+
 
 def dot(a, b, keepdims: bool = True):
     """Per-vector dot product, summed left to right (x + y) + z."""
@@ -20,8 +22,10 @@ def dot(a, b, keepdims: bool = True):
 def powf(x, e: float):
     """x**e through the general power function.  A Python-scalar exponent
     would take PyTorch's special cases (-0.5 -> rsqrt, ...), which round
-    differently from XLA's pow; a 0-d tensor exponent does not."""
-    return torch.pow(x, torch.tensor(e, dtype=x.dtype))
+    differently from XLA's pow; a 0-d tensor exponent does not.  Its
+    gradient copies the exponent's zero test to x's device and waits for
+    the copy ("nebulae/sync/pow_grad")."""
+    return span_backward(torch.pow(x, torch.tensor(e, dtype=x.dtype)), "nebulae/sync/pow_grad")
 
 
 def _tracks_grad(x) -> bool:

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from nebulae_tpu_torch.utils.profiling import span
+
 _U32 = 0xFFFFFFFF
 
 
@@ -27,7 +29,8 @@ def init_rng(pixel_x, pixel_y, width: int, frame):
     """State from pixel coordinate and frame: H((x + y*w) ^ H(frame))."""
     px = pixel_x.to(torch.int64)
     py = pixel_y.to(torch.int64)
-    f = torch.as_tensor(frame, dtype=torch.int64, device=px.device)
+    with span("nebulae/sync/rng_frame"):  # a Python int's copy to the device
+        f = torch.as_tensor(frame, dtype=torch.int64, device=px.device)
     seed = ((px + py * int(width)) & _U32) ^ jenkins_hash(f)
     state = jenkins_hash(seed)
     # Zero is a fixed point of xorshift; nudge it.

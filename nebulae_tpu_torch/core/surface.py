@@ -14,6 +14,7 @@ import torch
 from nebulae_tpu_torch.core.math import clip, cross, dot, normalize, shift2d
 from nebulae_tpu_torch.core.scene import MAT_HAS_NORMAL_TEX
 from nebulae_tpu_torch.core.texture import sample_bilinear_quad, srgb_to_linear
+from nebulae_tpu_torch.utils.profiling import span
 
 
 def bary_packed(rows, u, v, c: int):
@@ -55,7 +56,8 @@ class _GatherRows(torch.autograd.Function):
         flat = grad.reshape(grad.shape[0], -1)
         cols = flat.shape[1]
         bins = (idx[:, None] * cols + torch.arange(cols, device=idx.device)).reshape(-1)
-        sums = torch.bincount(bins, weights=flat.reshape(-1), minlength=ctx.rows * cols)
+        with span("nebulae/sync/bincount"):
+            sums = torch.bincount(bins, weights=flat.reshape(-1), minlength=ctx.rows * cols)
         return sums.reshape((ctx.rows,) + tuple(grad.shape[1:])), None
 
 

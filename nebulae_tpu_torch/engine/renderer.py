@@ -8,11 +8,12 @@ a dict of tensors plus the frame counter and the history-reset flag as
 Python values.  `pack_scene_tables` routes a scene to its traversal tables
 branch for branch as the JAX Renderer does (one fat4 or fat2 table, paged,
 tri-chunked, subtree-chunked or one-node).
-The frame's phases run under `record_function` ranges named
+The frame's phases run under profiler ranges (`utils.profiling.span`) named
 "nebulae/<phase>" (gbuffer, pathtrace, svgf, tonemap; with the neural
 radiance cache nrc_train, then nrc_query in place of pathtrace), so a
 profiler trace can attribute device time to them; inside svgf,
-"nebulae/svgf_reproject" spans the history's warp when the camera moved.
+"nebulae/svgf_reproject" spans the history's warp when the camera moved,
+and "nebulae/sync/same_camera" the host's test of whether it moved.
 """
 
 from __future__ import annotations
@@ -21,7 +22,6 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from nebulae_tpu_torch.bvh.cbuilder import build_bvh_for
 from nebulae_tpu_torch.bvh.refit import (
@@ -46,6 +46,7 @@ from nebulae_tpu_torch.passes.pathtrace import path_trace
 from nebulae_tpu_torch.passes.svgf import init_history, reproject_history, svgf_denoise
 from nebulae_tpu_torch.passes.tonemap import aces_tonemap
 from nebulae_tpu_torch.tracer.trace import make_tracer
+from nebulae_tpu_torch.utils.profiling import span
 
 
 def pack_scene_tables(bvh, tri_pos: np.ndarray, cfg: RenderConfig) -> tuple[str, dict]:
@@ -184,7 +185,7 @@ def render_frame(scene: dict, tables: dict | None, sun: SunLight, cam: dict, sta
         h = r1 - r0
     closest_fn, any_fn = make_tracer(scene, tables, cfg, device=dev)
 
-    with record_function("nebulae/gbuffer"):
+    with span("nebulae/gbuffer"):
         o, d = camera_rays(cam, w, h_img, rows=(r0, r0 + h))
         gbuf = render_gbuffer(scene, closest_fn, o, d, image_hw=(h, w) if cfg.texture_mips else None, world=world)
 
@@ -193,12 +194,12 @@ def render_frame(scene: dict, tables: dict | None, sun: SunLight, cam: dict, sta
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     nrc_loss, cache_params, nrc_aux = zero, None, {}
     if nrc:
-        with record_function("nebulae/nrc_train"):
+        with span("nebulae/nrc_train"):
             new_state["nrc"], nrc_loss = nrc_train_frame(scene, sun, closest_fn, any_fn, state["nrc"], cam,
                                                          state["frame"], cfg)
         cache_params = [{k: t.detach() for k, t in layer.items()} for layer in new_state["nrc"]["ema_params"]]
 
-    with record_function("nebulae/nrc_query" if nrc else "nebulae/pathtrace"):
+    with span("nebulae/nrc_query" if nrc else "nebulae/pathtrace"):
         ys, xs = torch.meshgrid(
             torch.arange(r0, r0 + h, device=dev), torch.arange(w, device=dev), indexing="ij"
         )
@@ -217,7 +218,7 @@ def render_frame(scene: dict, tables: dict | None, sun: SunLight, cam: dict, sta
     hit = gbuf["hit"].reshape(h, w)
 
     if cfg.enable_svgf:
-        with record_function("nebulae/svgf"):
+        with span("nebulae/svgf"):
             hist = state["svgf"]
             if state["reset_history"]:
                 lum = luminance(img)
@@ -228,12 +229,13 @@ def render_frame(scene: dict, tables: dict | None, sun: SunLight, cam: dict, sta
                 }
             else:
                 hist = {k: hist[k] for k in ("radiance", "depth", "normal", "moments", "histlen")}
-                same_cam = bool(
-                    torch.equal(state["svgf"]["prev_viewproj"], cam["viewproj"])
-                    and torch.equal(state["svgf"]["prev_eye"], cam["eye"])
-                )
+                with span("nebulae/sync/same_camera"):
+                    same_cam = bool(
+                        torch.equal(state["svgf"]["prev_viewproj"], cam["viewproj"])
+                        and torch.equal(state["svgf"]["prev_eye"], cam["eye"])
+                    )
                 if cfg.svgf_reproject and not same_cam:
-                    with record_function("nebulae/svgf_reproject"):
+                    with span("nebulae/svgf_reproject"):
                         warped, valid = reproject_history(
                             hist, gbuf["position"].reshape(h, w, 3), state["svgf"]["prev_viewproj"],
                             w, h_img, prev_eye=state["svgf"]["prev_eye"], current_depth=depth, world=world,
@@ -249,7 +251,7 @@ def render_frame(scene: dict, tables: dict | None, sun: SunLight, cam: dict, sta
     new_state["frame"] = int(state["frame"]) + 1
     new_state["reset_history"] = False
 
-    with record_function("nebulae/tonemap"):
+    with span("nebulae/tonemap"):
         ldr = aces_tonemap(denoised) if cfg.enable_tonemap else denoised
     query_frac = nrc_aux["query_frac"] if nrc else zero
     if nrc and world is not None:

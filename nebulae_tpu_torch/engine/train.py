@@ -12,7 +12,7 @@ it leaves its inputs as they are and returns new tensors, so a caller can
 hold params fixed across steps.  The returned frame state and image are
 detached, so the SVGF history does not keep a step's graph alive into the
 next.  On the GPU the a-trous cascade runs kernel K4 forward and K5
-backward.  Besides the frame's own `record_function` ranges, the step
+backward.  Besides the frame's own profiler ranges, the step
 opens "nebulae/backward" and "nebulae/optimizer".
 """
 
@@ -21,12 +21,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.profiler import record_function
 
 from nebulae_tpu_torch.config import SUN_LEAVES, RenderConfig, SunLight
 from nebulae_tpu_torch.device import resolve_device
 from nebulae_tpu_torch.dist.comm import all_reduce_sum
 from nebulae_tpu_torch.engine.renderer import render_frame
+from nebulae_tpu_torch.utils.profiling import span
 
 # Scene tables that are trainable (the material factors).
 TRAINABLE_SCENE_KEYS = ("mat_base_color", "mat_metallic", "mat_roughness", "mat_emissive")
@@ -155,11 +155,11 @@ def loss_and_grads(params, frozen_scene, tables, cam, state, target, cfg: Render
             unflatten_params(params, leaves), frozen_scene, tables, cam, state, target,
             cfg, device=device, world=world,
         )
-        with record_function("nebulae/backward"):
+        with span("nebulae/backward"):
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
     if world is not None:
-        with record_function("nebulae/grad_sum"):
+        with span("nebulae/grad_sum"):
             loss = all_reduce_sum(world, loss, "loss")
             flat = all_reduce_sum(world, torch.cat([g.reshape(-1) for g in grads]), "grads")
             grads = [g.reshape(x.shape) for g, x in zip(flat.split([x.numel() for x in leaves]), leaves)]
@@ -184,7 +184,7 @@ def make_train_step(cfg: RenderConfig, frozen_scene: dict, tables: dict | None,
         if not train_sun:
             n_sun = len(SUN_LEAVES)
             grads = grads[:-n_sun] + [torch.zeros_like(g) for g in grads[-n_sun:]]
-        with record_function("nebulae/optimizer"), torch.no_grad():
+        with span("nebulae/optimizer"), torch.no_grad():
             new_params, opt_state = optimizer.apply(params, grads, opt_state)
             mats = clamp_scene_params({k: v for k, v in new_params.items() if k != "sun"})
             new_params = {**mats, "sun": new_params["sun"]}

@@ -34,6 +34,8 @@ import torch.nn.functional as F
 
 from nebulae_tpu_torch.core.math import luminance
 from nebulae_tpu_torch.kernels.build import check, native
+from nebulae_tpu_torch.utils.metrics import count
+from nebulae_tpu_torch.utils.profiling import span
 
 B3 = (1.0 / 16.0, 1.0 / 4.0, 3.0 / 8.0, 1.0 / 4.0, 1.0 / 16.0)
 
@@ -225,8 +227,13 @@ class AtrousStep(torch.autograd.Function):
 
 def atrous_step(radiance, variance, depth, normal, step: int, phi):
     """K4: one a-trous step, phi = (phi_color, phi_normal, phi_depth) ->
-    (out, sum_w).  Differentiable in radiance through K5 on both devices."""
-    return AtrousStep.apply(radiance, variance, depth, normal, int(step), tuple(phi))
+    (out, sum_w).  Differentiable in radiance through K5 on both devices.
+    Runs under the range "nebulae/atrous" and counts the pass and its
+    pixels ("atrous.passes", "atrous.pixels")."""
+    count("atrous.passes")
+    count("atrous.pixels", radiance.shape[0] * radiance.shape[1])
+    with span("nebulae/atrous"):
+        return AtrousStep.apply(radiance, variance, depth, normal, int(step), tuple(phi))
 
 
 atrous_step.launches = 0

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from nebulae_tpu_torch.kernels.build import check, native
+from nebulae_tpu_torch.utils.profiling import span
 
 TRI_STRIDE = 10
 NODE_STRIDE = 32
@@ -823,8 +824,10 @@ def _check_wide_loads(tables, nodes_key="fat4nodes"):
 
 
 def _cap_arg(t_max, n, dev):
-    """(tensor, stride) for a scalar or per-ray [N] cap."""
-    t = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
+    """(tensor, stride) for a scalar or per-ray [N] cap.  A Python scalar
+    is copied to the device, which waits for the copy."""
+    with span("nebulae/sync/cap"):
+        t = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
     if t.dim() == 0:
         return t.reshape(1).contiguous(), 0
     if t.shape != (n,):

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from nebulae_tpu_torch.core.math import clip, maximum, oct_encode
+from nebulae_tpu_torch.utils.profiling import span
 
 N_FREQ = 12  # triangle-wave frequencies per position axis
 N_BLOB = 4  # one-blob bins per direction coordinate
@@ -34,7 +35,8 @@ def triangle_wave_encode(x, n_freq: int = N_FREQ):
 
 def oneblob_encode(x, n_bins: int = N_BLOB):
     """x in [0, 1] [..., D] -> [..., D * n_bins] Gaussian one-blob."""
-    centers = torch.from_numpy((np.arange(n_bins, dtype=np.float32) + 0.5) / n_bins).to(x.device)
+    with span("nebulae/sync/blob_centers"):  # a host array's copy to the device
+        centers = torch.from_numpy((np.arange(n_bins, dtype=np.float32) + 0.5) / n_bins).to(x.device)
     sigma = 1.0 / n_bins
     d = x[..., :, None] - centers
     blob = torch.exp(-0.5 * (d / sigma) ** 2)
@@ -47,16 +49,18 @@ def unit_to_01(d):
 
 
 def encode_query(position, normal, view, roughness, albedo, specular, aabb_min, aabb_max):
-    """The cache MLP's input [..., encoded_dim()] from a query record."""
-    parts = [
-        triangle_wave_encode(normalize_position(position, aabb_min, aabb_max)),
-        oneblob_encode(unit_to_01(normal)),
-        oneblob_encode(unit_to_01(view)),
-        1.0 - torch.exp(-roughness[..., None]),
-        albedo,
-        specular,
-    ]
-    return torch.cat(parts, dim=-1)
+    """The cache MLP's input [..., encoded_dim()] from a query record,
+    built under the range "nebulae/nrc_encode"."""
+    with span("nebulae/nrc_encode"):
+        parts = [
+            triangle_wave_encode(normalize_position(position, aabb_min, aabb_max)),
+            oneblob_encode(unit_to_01(normal)),
+            oneblob_encode(unit_to_01(view)),
+            1.0 - torch.exp(-roughness[..., None]),
+            albedo,
+            specular,
+        ]
+        return torch.cat(parts, dim=-1)
 
 
 def encoded_dim() -> int:

@@ -32,7 +32,8 @@ from __future__ import annotations
 import math
 
 import torch
-from torch.profiler import record_function
+
+from nebulae_tpu_torch.utils.profiling import span
 
 HIDDEN = 64
 DEPTH = 5
@@ -156,7 +157,7 @@ class _BF16MLP(torch.autograd.Function):
 
 def apply_mlp(params: list, x):
     """x [..., in_dim] -> radiance [..., 3] (softplus, non-negative)."""
-    with record_function("nebulae/nrc_mlp"):
+    with span("nebulae/nrc_mlp"):
         leaves = mlp_leaves(params)
         x2 = x.reshape(-1, x.shape[-1])
         if torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in leaves)):

@@ -14,6 +14,7 @@ import torch
 from nebulae_tpu_torch.core.math import normalize
 from nebulae_tpu_torch.core.surface import has_textures, mip_level_from_uv, reconstruct_surface
 from nebulae_tpu_torch.dist.comm import exchange_rows
+from nebulae_tpu_torch.utils.profiling import span
 
 
 def make_camera_arrays(camera, width: int, height: int, device) -> dict:
@@ -25,15 +26,17 @@ def make_camera_arrays(camera, width: int, height: int, device) -> dict:
     def t(x):
         return torch.as_tensor(np.asarray(x, np.float32)).to(device)
 
-    return {
-        "eye": t(camera.eye),
-        "right": t(right),
-        "up": t(up),
-        "fwd": t(fwd),
-        "tan_half": t(np.tan(np.deg2rad(camera.fov_y_deg) * 0.5)),
-        "aspect": t(width / height),
-        "viewproj": t(proj @ view),
-    }
+    # Each host array's copy to the device waits for the copy.
+    with span("nebulae/sync/camera"):
+        return {
+            "eye": t(camera.eye),
+            "right": t(right),
+            "up": t(up),
+            "fwd": t(fwd),
+            "tan_half": t(np.tan(np.deg2rad(camera.fov_y_deg) * 0.5)),
+            "aspect": t(width / height),
+            "viewproj": t(proj @ view),
+        }
 
 
 def camera_rays(cam: dict, width: int, height: int, jitter=None, rows=None):

@@ -21,6 +21,7 @@ import torch
 from nebulae_tpu_torch.core.math import luminance, powf, shift2d
 from nebulae_tpu_torch.dist import comm
 from nebulae_tpu_torch.kernels.svgf import atrous_step
+from nebulae_tpu_torch.utils.profiling import span
 
 
 def _finite_depth(depth, far=1e8):
@@ -45,7 +46,9 @@ def svgf_temporal(radiance, depth, normal, hist_radiance, hist_depth, hist_norma
     new_histlen = torch.where(w > 0.5, histlen + 1.0, 1.0)
 
     short = new_histlen < 4.0
-    if bool(short.any()) if world is None else comm.any_rank(world, short.any()):
+    with span("nebulae/sync/svgf_short"):
+        any_short = bool(short.any()) if world is None else comm.any_rank(world, short.any())
+    if any_short:
         # Spatial variance bootstrap: separable depth/normal-bilateral 7x7
         # estimate of the moments while history is short.
         z0, nrm, yb, top = _finite_depth(depth), normal, y, 0

@@ -7,11 +7,17 @@ every channel back to pixel order with a fill for the other lanes.  On the
 GPU compaction is exact (`torch.nonzero`): there are no static buckets and
 no bucket schedule.  With `order_key`, the live lanes are traced in key
 order (`ray_sort_key`) for coherence; no output depends on that order.
+Each compaction waits on the device for its count ("nebulae/sync/compact")
+and adds the lanes it was offered and kept to the counters "lanes.full" and
+"lanes.walked" (utils/metrics.py).
 """
 
 from __future__ import annotations
 
 import torch
+
+from nebulae_tpu_torch.utils.metrics import count
+from nebulae_tpu_torch.utils.profiling import span
 
 DEAD_ORIGIN = 1.0e14  # far outside any scene: the traversal misses at once
 
@@ -39,7 +45,10 @@ def ray_sort_key(o, d, aabb_min, aabb_max):
 
 def live_lanes(mask, key=None):
     """Indices of the lanes in `mask`, in key order when a key is given."""
-    idx = torch.nonzero(mask)[:, 0]
+    with span("nebulae/sync/compact"):
+        idx = torch.nonzero(mask)[:, 0]
+    count("lanes.full", mask.shape[0])
+    count("lanes.walked", idx.numel())
     if key is not None and idx.numel() > 1:
         idx = idx[torch.argsort(key[idx], stable=True)]
     return idx

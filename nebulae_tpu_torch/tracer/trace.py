@@ -7,7 +7,9 @@ t_max_l)` -> (hit, occluded) for the fused shadow+bounce walk.  The tables'
 route picks the kernels: K1-K3 over one fat4 table, K7 over one fat2 table
 (bvh_wide=2), K6a on the paged route, chained K6b walks over triangle
 chunks, chained K1-K3 / K7 / K8 walks over subtree chunks, or K8 over
-one-node tables (whose combo is K8 closest then K8 any).
+one-node tables (whose combo is K8 closest then K8 any).  Each callable
+runs under a range of its own ("nebulae/trace/closest", "/combo", "/any")
+and adds its rays to the counter "rays.<kind>" (utils/metrics.py).
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from nebulae_tpu_torch.device import resolve_device
 from nebulae_tpu_torch.kernels import chunks as kc
 from nebulae_tpu_torch.kernels import trace as kt
 from nebulae_tpu_torch.tracer.intersect import ray_triangle
+from nebulae_tpu_torch.utils.metrics import count
+from nebulae_tpu_torch.utils.profiling import span
 
 # Rays per brute-force chunk scale inversely with the triangle count so the
 # [rays, tris] temporaries stay bounded.
@@ -77,12 +81,23 @@ def bruteforce_any_hit(o, d, tri_pos, t_max=float("inf")):
     return occ
 
 
-def _with_combo(closest, combo):
-    def fn(o, d, t_max=float("inf")):
-        return closest(o, d, t_max=t_max)
+def _traced(kind: str, fn):
+    """fn under the range "nebulae/trace/<kind>", its rays counted."""
+    name, counter = "nebulae/trace/" + kind, "rays." + kind
 
-    fn.combo = combo
-    return fn
+    def call(o, *args, **kw):
+        count(counter, o.shape[0])
+        with span(name):
+            return fn(o, *args, **kw)
+
+    return call
+
+
+def _tracer(closest, any_hit, combo):
+    """The (closest_fn, any_fn) pair, closest_fn.combo the fused walk."""
+    fn = _traced("closest", closest)
+    fn.combo = _traced("combo", combo)
+    return fn, _traced("any", any_hit)
 
 
 def make_tracer(scene: dict, tables: dict | None, cfg, device=None):
@@ -111,7 +126,7 @@ def make_tracer(scene: dict, tables: dict | None, cfg, device=None):
         def combo(o, b, l, t_max_b, t_max_l):
             return closest(o, b, t_max_b), any_hit(o, l, t_max_l)
 
-        return _with_combo(closest, combo), any_hit
+        return _tracer(closest, any_hit, combo)
     if mode != "pallas":
         raise ValueError(f"unknown tracer mode: {mode}")
     if tables is None:
@@ -142,4 +157,4 @@ def make_tracer(scene: dict, tables: dict | None, cfg, device=None):
     def combo_k(o, b, l, t_max_b, t_max_l):
         return combo(o, b, l, tables, t_max_b, t_max_l)
 
-    return _with_combo(closest_k, combo_k), any_k
+    return _tracer(closest_k, any_k, combo_k)

@@ -3,6 +3,17 @@
 As `nebulae_tpu/utils/metrics.py`: scalars and counts gathered between
 flushes, each flush one JSON row {"time", "step", scalars..., counts...}
 appended to a JSONL stream (counts accumulate across flushes).
+
+Besides, one process-wide table of integer counters that the program
+advances where the number is already on the host (no sync, no device op):
+`count(name, n)` and `totals()`.  Its names:
+
+  * "lanes.full", "lanes.walked": lanes offered to and kept by each live-lane
+    compaction of a path vertex's walk (tracer/sorting.py);
+  * "rays.closest", "rays.combo", "rays.any": rays into each of the tracer's
+    callables (tracer/trace.py; a combo ray is a lane's shadow and bounce);
+  * "atrous.passes", "atrous.pixels": a-trous passes and the pixels they
+    filter (kernels/svgf.py).
 """
 
 from __future__ import annotations
@@ -10,6 +21,19 @@ from __future__ import annotations
 import json
 import time
 from pathlib import Path
+
+_totals: dict[str, int] = {}
+
+
+def count(name: str, n: int = 1):
+    """Add n to the process-wide counter `name` (from the thread that
+    issues the work: no lock)."""
+    _totals[name] = _totals.get(name, 0) + n
+
+
+def totals() -> dict[str, int]:
+    """A copy of every process-wide counter."""
+    return dict(_totals)
 
 
 class MetricsLogger:

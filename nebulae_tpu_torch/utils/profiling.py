@@ -1,11 +1,20 @@
-"""Tracing and profiling (as `nebulae_tpu/utils/profiling.py`).
+"""Tracing and profiling.
 
-  * `pass_annotation(name)`: a torch.profiler range (record_function) and,
-    on a GPU, an NVTX range around a render pass;
+  * `span(name)`: a torch.profiler range (record_function) while a
+    profiler is recording, else a shared null context.  Every range of the
+    port goes through it, so ranges cost a flag test when nothing traces;
+  * `span_backward(t, name)`: the same around the backward of t's autograd
+    node;
   * `profile_trace(dir)`: torch.profiler over a block, CPU and CUDA
     activity, exported as a Chrome trace to dir/trace.json;
-  * `FrameTimer`: frame pacing with a once-a-second log line;
-  * `RaysPerSecond`: a rolling rays-per-second counter.
+  * `FrameTimer`: frame pacing with a once-a-second log line.
+
+The port's ranges are named "nebulae/<what>": a frame's phases
+(engine/renderer.py), the train step's (engine/train.py), the cache MLP
+(nrc/mlp.py) and encoding (nrc/encoding.py), each walk of the tracer
+("nebulae/trace/closest", "/combo", "/any"; tracer/trace.py), each a-trous
+pass ("nebulae/atrous"; kernels/svgf.py), and each place where the host
+waits on the device, "nebulae/sync/<site>".
 """
 
 from __future__ import annotations
@@ -15,29 +24,49 @@ import time
 from pathlib import Path
 
 import torch
+import torch.autograd.profiler as _profiler
+from torch.profiler import record_function
 
 from nebulae_tpu_torch.utils.logging import log_info
 
 TRACE_FILE = "trace.json"
 
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range called `name` while a profiler records, else a
+    null context: an unrecorded record_function still costs ~12 us of host
+    time, a frame opens ~100 ranges, and the host sets a frame's pace."""
+    return record_function(name) if _profiler._is_profiler_enabled else _OFF
+
+
+def span_backward(t, name: str):
+    """t, whose autograd node runs under a profiler range called `name` in
+    the backward, where a profiler records while t is made: the range
+    opens in the node's pre-hook and closes in its post-hook.  For a wait
+    inside PyTorch's own derivative of an operator.  A backward that raises
+    inside the node skips the post-hook: its range stays open until the
+    graph is freed, and ends there."""
+    if not _profiler._is_profiler_enabled or t.grad_fn is None:
+        return t
+    open_ = []
+
+    def enter(_grad_outputs):
+        rf = record_function(name)
+        rf.__enter__()
+        open_.append(rf)
+
+    def leave(_grad_inputs, _grad_outputs):
+        open_.pop().__exit__(None, None, None)
+
+    t.grad_fn.register_prehook(enter)
+    t.grad_fn.register_hook(leave)
+    return t
+
 
 @contextlib.contextmanager
-def pass_annotation(name: str):
-    """Scoped range around a render pass, seen by torch.profiler and by
-    NVTX-reading tools."""
-    nvtx = torch.cuda.is_available() and torch.cuda.is_initialized()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
-
-
-@contextlib.contextmanager
-def profile_trace(log_dir: str = "/tmp/nebulae_trace"):
+def profile_trace(log_dir: str):
     """Profile the block (device activity too when a GPU is present) and
     write its Chrome trace to log_dir/trace.json."""
     from torch.profiler import ProfilerActivity, profile
@@ -77,19 +106,3 @@ class FrameTimer:
             self.acc = 0.0
             self.frames = 0
         return dt
-
-
-class RaysPerSecond:
-    """Rolling rays/s counter for benchmark-style reporting."""
-
-    def __init__(self):
-        self.total_rays = 0
-        self.total_time = 0.0
-
-    def add(self, rays: int, seconds: float):
-        self.total_rays += rays
-        self.total_time += seconds
-
-    @property
-    def mrays_s(self) -> float:
-        return self.total_rays / max(self.total_time, 1e-9) / 1e6

@@ -2,8 +2,8 @@
 
   * OrbitCamera against JAX's; logging, metrics (JSONL rows), golden dumps,
     crash dumps and the heartbeat, FrameWriter (the same PNG pixels as
-    JAX's writer), PreviewServer over localhost, FrameTimer, RaysPerSecond
-    and profile_trace, mirroring tests/test_utils.py;
+    JAX's writer), PreviewServer over localhost, FrameTimer, the program's
+    counters and profile_trace, mirroring tests/test_utils.py;
   * checkpoints: a round trip of the frame state with the radiance cache
     (its parameter lists and Adam's {count, mu, nu}), and the errors on a
     structure, shape or dtype that differs from the target;
@@ -103,8 +103,8 @@ def test_logging_metrics_and_timers(tmp_path, capsys):
     from nebulae_tpu.utils.metrics import MetricsLogger as JMetrics
 
     from nebulae_tpu_torch.utils.logging import log_error, log_info, log_warn, neb_assert
-    from nebulae_tpu_torch.utils.metrics import MetricsLogger
-    from nebulae_tpu_torch.utils.profiling import FrameTimer, RaysPerSecond
+    from nebulae_tpu_torch.utils.metrics import MetricsLogger, count, totals
+    from nebulae_tpu_torch.utils.profiling import FrameTimer
 
     log_info("hello")
     log_warn("careful")
@@ -129,9 +129,15 @@ def test_logging_metrics_and_timers(tmp_path, capsys):
         a.pop("time"), b.pop("time")
         assert a == b
     assert MetricsLogger(None).flush(step=1)["step"] == 1
-    r = RaysPerSecond()
-    r.add(1_000_000, 0.5)
-    assert abs(r.mrays_s - 2.0) < 1e-6
+    before = totals()
+    count("test.rays", 1_000_000)
+    count("test.rays", 500_000)
+    count("test.passes")
+    after = totals()
+    assert after["test.rays"] - before.get("test.rays", 0) == 1_500_000
+    assert after["test.passes"] - before.get("test.passes", 0) == 1
+    after["test.rays"] = -1  # a copy: the table is unchanged
+    assert totals()["test.rays"] - before.get("test.rays", 0) == 1_500_000
     t = FrameTimer()
     t.last -= 1.5
     assert t.tick() >= 1.5 and t.frames == 0 and t.fps > 0 and "frametime" in capsys.readouterr().err
@@ -249,10 +255,10 @@ def test_preview_server_serves_latest_frame():
 
 
 def test_profile_trace_on_cpu(tmp_path):
-    from nebulae_tpu_torch.utils.profiling import pass_annotation, profile_trace
+    from nebulae_tpu_torch.utils.profiling import profile_trace, span
 
     with profile_trace(str(tmp_path / "trace")) as d:
-        with pass_annotation("nebulae/test_pass"):
+        with span("nebulae/test_pass"):
             (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
     events = json.loads((Path(d) / "trace.json").read_text())["traceEvents"]
     assert any(e.get("name") == "nebulae/test_pass" for e in events)
