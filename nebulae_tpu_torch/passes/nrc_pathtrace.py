@@ -10,6 +10,13 @@ plain path tracer's vertex (nee_bounce_draws, nee_bounce_step, _nee_direct:
 kernels K2 and K3) but not its loop: the query body adds no emission at a
 new vertex and applies no throughput threshold, as in JAX.
 
+With nrc_inline_resolve the query pass asks the cache only on the lanes
+each vertex's walk kept (`_resolve_walked`): a lane hands off only where
+its bounce found a surface, so every other lane's term is 0 and is never
+computed.  The counters "nrc.query_rows" and "nrc.query_full" (utils/
+metrics.py) take the rows so evaluated and the lanes a full-width resolve
+would have evaluated.  The training pass's queries stay at full width.
+
 RNG: the query pass draws as the path tracer does (5 a bounce vertex, 2 at
 the last); the training pass seeds with frame ^ 0x9E3779B9, then draws 2
 for its jitter, 1 for the unbiased-path lottery, 5 a bounce vertex and 2 at
@@ -26,6 +33,7 @@ from nebulae_tpu_torch.core.math import clip, dot
 from nebulae_tpu_torch.nrc.cache import primary_spread, query_cache, spread_term, train_cache_step
 from nebulae_tpu_torch.passes.gbuffer import camera_rays, render_gbuffer
 from nebulae_tpu_torch.passes.pathtrace import SURF_KEYS, _nee_direct, nee_bounce_draws, nee_bounce_step
+from nebulae_tpu_torch.utils.metrics import count
 
 PI = 3.14159265358979
 QREC_KEYS = ("position", "normal_s", "albedo", "roughness", "metalness")
@@ -36,6 +44,20 @@ def _primary_spread0(surf0, gbuf):
     cos0 = clip(dot(surf0["normal_s"], gbuf["view"], False), 1e-3, 1.0)
     spread0 = primary_spread(gbuf["depth"], cos0)
     return torch.where(torch.isfinite(spread0), spread0, 0.0)
+
+
+def _resolve_walked(acc, cache_params, surf, view, throughput, terminate, walked, aabb, cfg):
+    """acc plus throughput times the cache's radiance on the lanes that
+    hand off at this vertex (`terminate`), evaluated on the `walked` lanes
+    alone (the vertex walk's indices, a superset of them) and added back
+    at their pixels.  No walked lane: no query."""
+    count("nrc.query_full", terminate.shape[0])
+    count("nrc.query_rows", walked.numel())
+    if walked.numel() == 0:
+        return acc
+    pred = query_cache(cache_params, {k: surf[k][walked] for k in QREC_KEYS}, view[walked], *aabb,
+                       learn_irradiance=cfg.nrc_learn_irradiance)
+    return acc.index_add(0, walked, torch.where(terminate[walked][..., None], throughput[walked] * pred, 0.0))
 
 
 def path_trace_nrc_query(scene, gbuf, sun, closest_fn, any_fn, rng_state, cfg, cache_params):
@@ -67,7 +89,7 @@ def path_trace_nrc_query(scene, gbuf, sun, closest_fn, any_fn, rng_state, cfg, c
     for bounce in range(cfg.max_bounces - 1):
         rng_state, pre = nee_bounce_draws(surf, view, sun, alive, rng_state)
         alive_b = alive & pre["rr_continue"]
-        vis, found, hit_t, new_surf = nee_bounce_step(scene, pre, alive_b, closest_fn, cfg)
+        vis, found, hit_t, new_surf, walked = nee_bounce_step(scene, pre, alive_b, closest_fn, cfg)
         direct = pre["f"] * (pre["n_dot_l"] * vis)[..., None] * sun.radiance[None, :]
         acc = acc + torch.where(alive[..., None], throughput * direct, 0.0)
         alive = alive_b
@@ -84,8 +106,7 @@ def path_trace_nrc_query(scene, gbuf, sun, closest_fn, any_fn, rng_state, cfg, c
         spread = spread + spread_term(hit_t, cos_new, pdf)
         terminate = alive & (spread > cfg.nrc_terminate_threshold * spread0) & ~q_set
         if cfg.nrc_inline_resolve:
-            pred = query_cache(cache_params, surf, view, *aabb, learn_irradiance=cfg.nrc_learn_irradiance)
-            acc = acc + torch.where(terminate[..., None], throughput * pred, 0.0)
+            acc = _resolve_walked(acc, cache_params, surf, view, throughput, terminate, walked, aabb, cfg)
         else:
             t_ = terminate[..., None]
             qrec = {
@@ -172,7 +193,7 @@ def path_trace_nrc_train(scene, sun, closest_fn, any_fn, cfg, cache_state, optim
     for _ in range(cfg.nrc_max_path_vertices - 1):
         rng_state, pre = nee_bounce_draws(surf, view, sun, alive, rng_state)
         alive_b = alive & pre["rr_continue"]
-        vis, found, hit_t, new_surf = nee_bounce_step(scene, pre, alive_b, closest_fn, cfg)
+        vis, found, hit_t, new_surf, _walked = nee_bounce_step(scene, pre, alive_b, closest_fn, cfg)
         direct = pre["f"] * (pre["n_dot_l"] * vis)[..., None] * sun.radiance[None, :]
         local = torch.where(alive[..., None], direct + surf["emissive"], 0.0)
         rec = _vertex_record(surf, view, local, alive)

@@ -159,21 +159,23 @@ def _fast_shading_compact_post(scene):
 def nee_bounce_step(scene, pre, alive_bounce, closest_fn, cfg):
     """One vertex's shadow + bounce traces and next-vertex surface, by
     _compact_reconstruct_mode.  Returns (vis [N], found [N], hit_t [N],
-    surf dict)."""
+    surf dict, walked): `walked` indexes the lanes the walk traced
+    (sorted_shadow_closest's), and every lane outside it has found False."""
     origin = pre["origin"].detach()
     l = pre["l"].detach()
     b = pre["new_d"].detach()
     key = ray_sort_key(origin, b, scene["aabb_min"], scene["aabb_max"]) if cfg.sort_rays else None
     mode = _compact_reconstruct_mode(scene, cfg)
     if mode is None:
-        occ, hit = sorted_shadow_closest(closest_fn.combo, origin, l, b, pre["shoot"], alive_bounce, key=key)
+        occ, hit, walked = sorted_shadow_closest(closest_fn.combo, origin, l, b, pre["shoot"], alive_bounce,
+                                                 key=key)
         vis = torch.where(pre["shoot"] & ~occ, 1.0, 0.0)
         # Fast shading at full width after the walk (JAX's _reconstruct).
         surf = reconstruct_surface_fast(scene, hit["tri"], hit["u"], hit["v"], pre["origin"], pre["new_d"],
                                         hit["t"])
-        return vis, hit["tri"] >= 0, hit["t"], surf
+        return vis, hit["tri"] >= 0, hit["t"], surf, walked
     post, fills = (_fast_shading_compact_post if mode == "fast" else _full_shading_compact_post)(scene)
-    occ, hit = sorted_shadow_closest(
+    occ, hit, walked = sorted_shadow_closest(
         closest_fn.combo, origin, l, b, pre["shoot"], alive_bounce, key=key,
         compact_post=post, post_fills=fills,
     )
@@ -189,7 +191,7 @@ def nee_bounce_step(scene, pre, alive_bounce, closest_fn, cfg):
             "normal_s": ns,
             **average_material(scene, m),
         }
-        return vis, hit["found"], hit["t"], surf
+        return vis, hit["found"], hit["t"], surf, walked
     base = gather_rows(scene["mat_base_color"], m)
     rough = gather_rows(scene["mat_roughness"], m)
     metal = gather_rows(scene["mat_metallic"], m)
@@ -209,7 +211,7 @@ def nee_bounce_step(scene, pre, alive_bounce, closest_fn, cfg):
         "metalness": clip(metal, 0.0, 1.0),
         "emissive": emissive,
     }
-    return vis, hit["found"], hit["t"], surf
+    return vis, hit["found"], hit["t"], surf, walked
 
 
 def _nee_direct(scene, surf, view, sun, alive, any_fn, rng_state, cfg):
@@ -245,7 +247,7 @@ def path_trace(scene, gbuf, sun, closest_fn, any_fn, rng_state, cfg):
         alive_b = alive & pre["rr_continue"]
         if cfg.throughput_threshold > 0.0:
             alive_b = alive_b & (new_throughput.amax(dim=-1) > cfg.throughput_threshold)
-        vis, found, _hit_t, surf = nee_bounce_step(scene, pre, alive_b, closest_fn, cfg)
+        vis, found, _hit_t, surf, _walked = nee_bounce_step(scene, pre, alive_b, closest_fn, cfg)
         direct = pre["f"] * (pre["n_dot_l"] * vis)[..., None] * sun.radiance[None, :]
         acc = acc + torch.where(alive[..., None], throughput * direct, 0.0)
         throughput = new_throughput

@@ -71,12 +71,14 @@ def sorted_shadow_closest(combo_fn, o, l, b, shoot, alive, key=None,
     """Shadow ray l (lanes in `shoot`) and bounce ray b (lanes in `alive`)
     from the same origins o, in one fused walk over the participating lanes.
 
-    Without `compact_post` returns (occluded [N], dict(t, tri, u, v)) with
-    miss records on lanes that do not bounce.  With it, `compact_post(hit,
-    o, b)` runs on the compact hits and must return a dict holding "mat"
-    (-1 on a miss) plus float channels; the result is then (occluded, dict
-    of t, mat, found and the post channels), each lane not traced holding
-    `post_fills.get(name, 0)`."""
+    Without `compact_post` returns (occluded [N], dict(t, tri, u, v),
+    walked) with miss records on lanes that do not bounce.  With it,
+    `compact_post(hit, o, b)` runs on the compact hits and must return a
+    dict holding "mat" (-1 on a miss) plus float channels; the result is
+    then (occluded, dict of t, mat, found and the post channels, walked),
+    each lane not traced holding `post_fills.get(name, 0)`.  `walked` holds
+    the traced lanes' indices (live_lanes of shoot | alive; their count is
+    on the host)."""
     n = o.shape[0]
     idx = live_lanes(shoot | alive, key)
     cap_b = torch.where(alive[idx], float("inf"), 0.0)
@@ -86,11 +88,11 @@ def sorted_shadow_closest(combo_fn, o, l, b, shoot, alive, key=None,
     occ = _scatter(n, idx, occ_c, False)
     if compact_post is None:
         fills = {"t": float("inf"), "tri": -1, "u": 0.0, "v": 0.0}
-        return occ, {k: _scatter(n, idx, hit[k], fills[k]) for k in ("t", "tri", "u", "v")}
+        return occ, {k: _scatter(n, idx, hit[k], fills[k]) for k in ("t", "tri", "u", "v")}, idx
     fills = dict(post_fills or {})
     extras = compact_post(hit, o[idx], b[idx])
     mat = _scatter(n, idx, torch.round(extras.pop("mat")).to(torch.int64), -1)
     out = {"t": _scatter(n, idx, hit["t"], float("inf")), "mat": mat, "found": mat >= 0}
     for k, v in extras.items():
         out[k] = _scatter(n, idx, v.detach(), float(fills.get(k, 0.0)))
-    return occ, out
+    return occ, out, idx

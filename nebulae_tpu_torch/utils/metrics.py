@@ -13,7 +13,10 @@ advances where the number is already on the host (no sync, no device op):
   * "rays.closest", "rays.combo", "rays.any": rays into each of the tracer's
     callables (tracer/trace.py; a combo ray is a lane's shadow and bounce);
   * "atrous.passes", "atrous.pixels": a-trous passes and the pixels they
-    filter (kernels/svgf.py).
+    filter (kernels/svgf.py);
+  * "nrc.query_rows", "nrc.query_full": rows the query pass's inline
+    resolve gave the cache, and the lanes times resolves a full-width
+    resolve would have given it (passes/nrc_pathtrace.py).
 """
 
 from __future__ import annotations

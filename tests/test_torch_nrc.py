@@ -28,7 +28,11 @@ cache starts from JAX's init_cache(seed=0), carried across.  Tolerances:
     handoff or a Russian roulette;
   * the training pass (7 vertices, 4 batches of 4096 records): the RNG
     state bit-equal, the loss to a relative 1e-3, the params after its
-    optimizer steps to a relative L2 error <= 1e-2.
+    optimizer steps to a relative L2 error <= 1e-2;
+  * the query pass's inline resolve, which asks the cache only on the
+    lanes each vertex's walk kept, against the full-width resolve written
+    here: radiance, RNG state and every aux output bit-equal (on the CPU
+    each MLP row is an exact sum, whatever the rows beside it).
 """
 
 import jax
@@ -573,3 +577,95 @@ def test_train_pass_loss_and_params_match_jax(train_pass):
     assert pcache["opt_state"]["count"] == 4 == int(jcache["opt_state"][1][0].count)
     assert _rel_l2(pcache["params"], jcache["params"]) <= 1e-2
     assert _rel_l2(pcache["ema_params"], jcache["ema_params"]) <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# The inline resolve on the walked lanes against a full-width one
+# ---------------------------------------------------------------------------
+
+
+def _full_width_resolve(acc, cache_params, surf, view, throughput, terminate, walked, aabb, cfg):
+    """The inline resolve on every lane: the cache's radiance kept where a
+    path hands off, 0.0 elsewhere."""
+    from nebulae_tpu_torch.nrc.cache import query_cache
+
+    pred = query_cache(cache_params, surf, view, *aabb, learn_irradiance=cfg.nrc_learn_irradiance)
+    return acc + torch.where(terminate[..., None], throughput * pred, 0.0)
+
+
+RESOLVE_CASES = {
+    "4 bounces": {},
+    "8 bounces": {"max_bounces": 8},
+    "fast shading, unsorted": {"max_bounces": 8, "fast_bounce_shading": True, "sort_rays": False},
+}
+
+
+@pytest.fixture(scope="module", params=list(RESOLVE_CASES))
+def resolves(request, atrium):
+    """The port's query pass from its own G-buffer, with the walked-lane
+    resolve and with the full-width one; the walks' lane counts, the
+    cache's query sizes and the counters' advances of the former."""
+    from nebulae_tpu_torch.config import RenderConfig
+    from nebulae_tpu_torch.core import rng as prng
+    from nebulae_tpu_torch.engine.renderer import Renderer
+    from nebulae_tpu_torch.interop import mlp_params_from_arrays
+    from nebulae_tpu_torch.passes import nrc_pathtrace as pnp
+    from nebulae_tpu_torch.passes.gbuffer import camera_rays, render_gbuffer
+    from nebulae_tpu_torch.tracer import sorting
+    from nebulae_tpu_torch.tracer.trace import make_tracer
+    from nebulae_tpu_torch.utils.metrics import totals
+
+    cfg = RenderConfig(**dict(KW, nrc_inline_resolve=True, **RESOLVE_CASES[request.param]))
+    pr = Renderer(atrium["fs"], cfg, device="cpu")
+    closest, any_fn = make_tracer(pr.scene, pr.tables, cfg, device="cpu")
+    gbuf = render_gbuffer(pr.scene, closest, *camera_rays(atrium["pcam"], S, S), image_hw=(S, S))
+    params = mlp_params_from_arrays(jax.tree.map(np.asarray, atrium["jcache"]["params"]), "cpu")
+    ys, xs = torch.meshgrid(torch.arange(S), torch.arange(S), indexing="ij")
+
+    def run():
+        rng = prng.init_rng(xs.reshape(-1), ys.reshape(-1), S, 0)
+        return pnp.path_trace_nrc_query(pr.scene, gbuf, pr.sun, closest, any_fn, rng, cfg, params)
+
+    walks, rows = [], []
+    live_lanes, query_cache = sorting.live_lanes, pnp.query_cache
+
+    def lanes_spy(mask, key=None):
+        idx = live_lanes(mask, key)
+        walks.append(idx.numel())
+        return idx
+
+    def query_spy(params, surf, view, *args, **kwargs):
+        rows.append(view.shape[0])
+        return query_cache(params, surf, view, *args, **kwargs)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sorting, "live_lanes", lanes_spy)
+        mp.setattr(pnp, "query_cache", query_spy)
+        before = totals()
+        walked = run()
+        after = totals()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pnp, "_resolve_walked", _full_width_resolve)
+        full = run()
+    return {"cfg": cfg, "walked": walked, "full": full, "walks": walks[:cfg.max_bounces - 1], "rows": rows,
+            "delta": {k: after.get(k, 0) - before.get(k, 0) for k in ("nrc.query_rows", "nrc.query_full")}}
+
+
+def test_walked_resolve_equals_full_width(resolves):
+    (rad, rng, aux), (rad_f, rng_f, aux_f) = resolves["walked"], resolves["full"]
+    assert float(aux_f["query_frac"]) > 0.05, "the atrium should hand some paths to the cache"
+    assert torch.equal(rad, rad_f)
+    assert torch.equal(rng, rng_f)
+    assert set(aux) == set(aux_f) == {"query_frac", "alive_frac", "n_vert", "term_bounce", "query_set"}
+    for k in aux:
+        assert torch.equal(aux[k], aux_f[k]), k
+
+
+def test_walked_resolve_counts_its_rows(resolves):
+    walks, cfg = resolves["walks"], resolves["cfg"]
+    # The atrium's paths all end within three vertices: the later walks keep no lane.
+    assert walks[0] > 0 and 0 in walks[1:], walks
+    assert resolves["delta"]["nrc.query_rows"] == sum(walks)
+    assert resolves["delta"]["nrc.query_full"] == (cfg.max_bounces - 1) * S * S
+    # One query a walk that kept a lane, on exactly those lanes; none after an empty walk.
+    assert resolves["rows"] == [n for n in walks if n > 0]

@@ -9,7 +9,9 @@ the query pass: the query reads the EMA parameters under stop_gradient);
 the query's surface inputs keep theirs.  Tolerances: loss to a relative
 1e-3, each gradient with a cosine >= 0.999: the step's frame trains the
 cache first, and Adam's updates of ulp-different gradients move each
-weight by up to 2 lr (tests/test_torch_nrc.py).
+weight by up to 2 lr (tests/test_torch_nrc.py).  The port's own step, with
+the query pass's cache asked only on the walked lanes, gives the loss and
+every gradient bit-equal to the same step with a full-width resolve.
 """
 
 import numpy as np
@@ -56,12 +58,6 @@ def steps(scene):
     from nebulae_tpu.engine.train import split_scene_params as jsplit
     from nebulae_tpu.passes.gbuffer import make_camera_arrays as jcam_arrays
 
-    from nebulae_tpu_torch.config import RenderConfig
-    from nebulae_tpu_torch.engine.renderer import Renderer
-    from nebulae_tpu_torch.engine.train import Adam, make_train_step, split_scene_params
-    from nebulae_tpu_torch.interop import frame_state_from_arrays
-    from nebulae_tpu_torch.passes.gbuffer import make_camera_arrays
-
     def recorder(inner):
         def init(p):
             return inner.init(p), jax.tree.map(jnp.zeros_like, p)
@@ -83,6 +79,22 @@ def steps(scene):
                                            jnp.asarray(target))
     jgrads = [np.asarray(jos[1][k]) for k in MAT_KEYS] + [np.asarray(getattr(jos[1]["sun"], k)) for k in SUN_KEYS]
 
+    state = jax.tree.map(np.asarray, jstate)
+    loss, grads, img, new_state = _port_step(scene, state, target)
+    return {"jax_loss": float(jloss), "jax_grads": jgrads, "loss": float(loss), "grads": grads, "img": img,
+            "state": new_state, "jax_count": int(jax.tree.leaves(jnew["nrc"]["opt_state"])[0]),
+            "inputs": (state, target)}
+
+
+def _port_step(scene, state, target):
+    """The port's step from a frame state's arrays: (loss, gradients of
+    MAT_KEYS + SUN_KEYS, image, new frame state)."""
+    from nebulae_tpu_torch.config import RenderConfig
+    from nebulae_tpu_torch.engine.renderer import Renderer
+    from nebulae_tpu_torch.engine.train import Adam, make_train_step, split_scene_params
+    from nebulae_tpu_torch.interop import frame_state_from_arrays
+    from nebulae_tpu_torch.passes.gbuffer import make_camera_arrays
+
     class Recorder(Adam):
         def apply(self, params, grads, opt_state):
             self.grads = [g.detach().clone() for g in grads]
@@ -94,12 +106,9 @@ def steps(scene):
     pp["sun"] = pr.sun
     opt = Recorder()
     step, _ = make_train_step(cfg, pfrozen, pr.tables, optimizer=opt, device="cpu")
-    state = frame_state_from_arrays(jax.tree.map(np.asarray, jstate), "cpu")
-    _, _, new_state, loss, img = step(pp, opt.init(pp), make_camera_arrays(scene["cam"], S, S, "cpu"), state,
-                                      torch.from_numpy(target))
-    return {"jax_loss": float(jloss), "jax_grads": jgrads, "loss": float(loss),
-            "grads": [g.numpy() for g in opt.grads], "img": img, "state": new_state,
-            "jax_count": int(jax.tree.leaves(jnew["nrc"]["opt_state"])[0])}
+    _, _, new_state, loss, img = step(pp, opt.init(pp), make_camera_arrays(scene["cam"], S, S, "cpu"),
+                                      frame_state_from_arrays(state, "cpu"), torch.from_numpy(target))
+    return loss, [g.numpy() for g in opt.grads], img, new_state
 
 
 def test_nrc_train_step_loss_matches_jax(steps):
@@ -116,6 +125,31 @@ def test_nrc_train_step_gradients_match_jax(steps, leaf):
     assert np.isfinite(a).all() and np.linalg.norm(b) > 0.0
     cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
     assert cos >= 0.999, f"{leaf}: cos {cos}"
+
+
+@pytest.fixture(scope="module")
+def full_width_step(scene, steps):
+    """The port's step on the same inputs, its query pass resolving the
+    cache on every lane."""
+    from nebulae_tpu_torch.nrc.cache import query_cache
+    from nebulae_tpu_torch.passes import nrc_pathtrace as pnp
+
+    def full_width_resolve(acc, cache_params, surf, view, throughput, terminate, walked, aabb, cfg):
+        pred = query_cache(cache_params, surf, view, *aabb, learn_irradiance=cfg.nrc_learn_irradiance)
+        return acc + torch.where(terminate[..., None], throughput * pred, 0.0)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pnp, "_resolve_walked", full_width_resolve)
+        loss, grads, _, _ = _port_step(scene, *steps["inputs"])
+    return {"loss": float(loss), "grads": grads}
+
+
+@pytest.mark.parametrize("leaf", MAT_KEYS + SUN_KEYS)
+def test_nrc_train_step_gradients_equal_full_width_resolve(steps, full_width_step, leaf):
+    k = (MAT_KEYS + SUN_KEYS).index(leaf)
+    assert steps["loss"] == full_width_step["loss"]
+    assert np.abs(steps["grads"][k]).max() > 0.0
+    np.testing.assert_array_equal(steps["grads"][k], full_width_step["grads"][k])
 
 
 def test_nrc_train_step_threads_the_cache(steps):

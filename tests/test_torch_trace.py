@@ -274,8 +274,8 @@ def test_sorted_shadow_closest_order_does_not_change_results(soup):
     shoot = _t(rng.uniform(size=1024) < 0.6)
     alive = _t(rng.uniform(size=1024) < 0.6)
     key = ray_sort_key(o, b, torch.zeros(3), torch.ones(3))
-    occ_k, hit_k = sorted_shadow_closest(closest.combo, o, l, b, shoot, alive, key=key)
-    occ_n, hit_n = sorted_shadow_closest(closest.combo, o, l, b, shoot, alive)
+    occ_k, hit_k, walked_k = sorted_shadow_closest(closest.combo, o, l, b, shoot, alive, key=key)
+    occ_n, hit_n, walked_n = sorted_shadow_closest(closest.combo, o, l, b, shoot, alive)
     ref_hit = closest(o, b)
     ref_occ = any_hit(o, l)
     for occ, hit in ((occ_k, hit_k), (occ_n, hit_n)):
@@ -283,6 +283,9 @@ def test_sorted_shadow_closest_order_does_not_change_results(soup):
         for k in ("t", "tri", "u", "v"):
             np.testing.assert_array_equal(hit[k][alive].numpy(), ref_hit[k][alive].numpy())
         assert (hit["tri"][~alive] == -1).all() and torch.isinf(hit["t"][~alive]).all()
+    # Both walks trace every lane that shoots or bounces, the keyed one in key order.
+    np.testing.assert_array_equal(walked_n.numpy(), torch.nonzero(shoot | alive)[:, 0].numpy())
+    np.testing.assert_array_equal(torch.sort(walked_k).values.numpy(), walked_n.numpy())
     np.testing.assert_array_equal(sorted_any(any_hit, o, l, shoot, key).numpy(), (ref_occ & shoot).numpy())
 
 
