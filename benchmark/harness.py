@@ -4,7 +4,9 @@ Everything a cell needs is found by name: the workload in BENCHMARK.json
 names its configuration (`configs/<name>.json` through the entry's
 `file`) and its traffic mix (`traffic/<name>.json`); its limits are in
 `limits/<workload>.json`; each metric is read by `metrics/<metric>.py`.
-The traffic's `kind` picks the driver and the check (`frames`, `steps`).
+The traffic's `kind` picks the driver and the check (`frames`, `steps`);
+a `frames` traffic may carry a `motion` block, which moves the scene's
+instances every frame (`Motion`).
 
 The program under test is nebulae_tpu_torch: it gets the scene's arrays as
 a FlatScene, the render configuration and the sun, and is driven through
@@ -123,6 +125,62 @@ class CameraPath:
                 self._point(float(s["target_radius"]), s["target_height"], a))
 
 
+class Motion:
+    """Rigid motion of the scene's instances, from a `frames` traffic's
+    "motion" block.  Instance i moves when i % every == first and it is not
+    one of the last `still_last` instances (those of the flat triangles
+    appended after a field's tori); every other instance keeps the identity.  At frame k a
+    moving instance turns by spin_rad_per_frame * k about spin_axis through
+    its pivot, the mean of its vertices in the scene the seed built, and
+    slides by slide_amplitude * (1 - cos(2 pi k / slide_period_frames)) / 2
+    along slide_axis toward the centre of the scene's build-time box.  At
+    frame 0 every transform is the identity.  The transforms depend on the
+    frame index alone.  The check adds `tiles` tiles about the moving
+    instances' triangles as frame 0 shows them."""
+
+    def __init__(self, spec: dict, sc: dict):
+        inst = np.asarray(sc["instance_of_tri"], np.int64)
+        n = int(inst.max()) + 1
+        ids = np.arange(n)
+        self.n = n
+        self.moving = ids[(ids % int(spec["every"]) == int(spec["first"])) & (ids < n - int(spec["still_last"]))]
+        corners = np.asarray(sc["tri_pos"], np.float64).sum(axis=1)
+        count = 3.0 * np.bincount(inst, minlength=n)
+        pivot = np.stack([np.bincount(inst, corners[:, c], minlength=n) for c in range(3)], -1) / count[:, None]
+        self.pivot = pivot[self.moving]
+        self.centroids = np.asarray(sc["tri_pos"], np.float64)[np.isin(inst, self.moving)].mean(axis=1)
+        centre = (np.asarray(sc["aabb_min"], np.float64) + np.asarray(sc["aabb_max"], np.float64)) * 0.5
+        axis = np.asarray(spec["slide_axis"], np.float64)
+        axis = axis / np.linalg.norm(axis)
+        self.toward = -np.sign((self.pivot - centre) @ axis)[:, None] * axis
+        spin = np.asarray(spec["spin_axis"], np.float64)
+        self.spin_axis = spin / np.linalg.norm(spin)
+        self.spec = spec
+
+    def at(self, k: int) -> np.ndarray:
+        """Frame k's transforms [I, 3, 4] float32: rows are world rows, the
+        last column the translation."""
+        s = self.spec
+        a = float(s["spin_rad_per_frame"]) * k
+        x, y, z = self.spin_axis
+        cross = np.array([[0.0, -z, y], [z, 0.0, -x], [-y, x, 0.0]])
+        rot = np.eye(3) + np.sin(a) * cross + (1.0 - np.cos(a)) * (cross @ cross)
+        slide = float(s["slide_amplitude"]) * (1.0 - np.cos(2.0 * np.pi * k / float(s["slide_period_frames"]))) * 0.5
+        out = np.zeros((self.n, 3, 4))
+        out[:, :, :3] = np.eye(3)
+        out[self.moving, :, :3] = rot
+        out[self.moving, :, 3] = self.pivot - self.pivot @ rot.T + slide * self.toward
+        return out.astype(np.float32)
+
+    def tiles(self, rng: np.random.Generator, path: CameraPath, width: int, height: int, tile: int, margin: int):
+        """The check's tiles on the moving instances: about triangles drawn
+        by `rng` among theirs that frame 0's camera puts on the image."""
+        from benchmark.reference.frame import point_tiles, view_proj
+
+        vp, _eye = view_proj(*path.at(0), path.fov, width, height)
+        return point_tiles(rng, self.centroids, vp, width, height, tile, margin, int(self.spec["tiles"]))
+
+
 class Program:
     """The system under test, built from the benchmark's arrays."""
 
@@ -202,7 +260,9 @@ class Probes:
 
 class Frames:
     """The `frames` traffic: Renderer.render back to back, each frame
-    presented (its ldr copied to the host) before the next is issued."""
+    presented (its ldr copied to the host) before the next is issued.  With
+    a `motion` block, each frame first moves the instances to its pose
+    (Renderer.update_instances), inside the frame's time."""
 
     def __init__(self, prog: Program, traffic: dict, sc: dict, seed: int, device):
         from nebulae_tpu_torch.core.camera import Camera
@@ -210,6 +270,7 @@ class Frames:
         self.Camera = Camera
         self.prog = prog
         self.path = CameraPath(traffic["camera"], sc["aabb_min"], sc["aabb_max"], seed)
+        self.motion = Motion(traffic["motion"], sc) if "motion" in traffic else None
         cfg = prog.cfg
         self.host = torch.empty((cfg.height, cfg.width, 3), dtype=torch.float32,
                                 pin_memory=device.type == "cuda")
@@ -218,7 +279,10 @@ class Frames:
     def one(self) -> float:
         """Render and present frame `count`; its seconds."""
         eye, target = self.path.at(self.count)
+        pose = None if self.motion is None else self.motion.at(self.count)
         t0 = time.perf_counter()
+        if pose is not None:
+            self.prog.renderer.update_instances(pose)
         out = self.prog.renderer.render(self.Camera(eye=eye, target=target, fov_y_deg=self.path.fov))
         self.host.copy_(out["ldr"])
         self.last_loss = out["nrc_loss"]
@@ -280,28 +344,30 @@ def _grow(r, n: int, height: int, width: int):
     return (max(r[0] - n, 0), min(r[1] + n, height), max(r[2] - n, 0), min(r[3] + n, width))
 
 
-def chain_regions(S, path: CameraPath, cfg: dict, tiles, chain: int) -> list:
+def chain_regions(scene, path: CameraPath, cfg: dict, tiles, chain: int) -> list:
     """The region each tile is rendered on at each frame of the chain
     ([frame][tile]): its own region at every frame, and at an earlier frame
     also the pixels that the later frame's reprojection reads (grown by
-    one, so that their uv derivatives, and so their history, are exact)."""
+    one, so that their uv derivatives, and so their history, are exact).
+    `scene(k)` is the reference's scene at frame k."""
     from benchmark.reference import frame as ref
 
     width, height = int(cfg["width"]), int(cfg["height"])
     out = [[None] * len(tiles) for _ in range(chain)]
-    for i, (_tile, region) in enumerate(tiles):
-        need = region
-        for k in range(chain - 1, -1, -1):
-            out[k][i] = need
-            if k == 0:
-                break
-            moved = _moved(path, k, cfg)
-            if moved is None:
-                need = region
-                continue
-            cam = ref.camera_basis(*path.at(k), path.fov, width, height)
-            taps = ref.reprojected_taps(S, cam, width, height, need, moved[0])
-            need = region if taps is None else _hull(region, _grow(taps, 1, height, width))
+    need = [region for _tile, region in tiles]
+    for k in range(chain - 1, -1, -1):
+        for i in range(len(tiles)):
+            out[k][i] = need[i]
+        if k == 0:
+            break
+        moved = _moved(path, k, cfg)
+        if moved is None:
+            need = [region for _tile, region in tiles]
+            continue
+        cam = ref.camera_basis(*path.at(k), path.fov, width, height)
+        for i, (_tile, region) in enumerate(tiles):
+            taps = ref.reprojected_taps(scene(k), cam, width, height, need[i], moved[0])
+            need[i] = region if taps is None else _hull(region, _grow(taps, 1, height, width))
     return out
 
 
@@ -319,6 +385,28 @@ def _moved(path: CameraPath, k: int, cfg: dict):
     return ref.view_proj(pe, pt, path.fov, int(cfg["width"]), int(cfg["height"]))
 
 
+class Poses:
+    """The reference's scene at each frame: the scene itself where nothing
+    moves, else the scene moved to frame k's pose (one pose held at a
+    time), with the ray-triangle tests of all their tracers counted."""
+
+    def __init__(self, S, motion: Motion | None):
+        self.S, self.motion = S, motion
+        self.k, self.at_k, self.done = None, None, 0
+
+    def __call__(self, k: int):
+        if self.motion is None:
+            return self.S
+        if k != self.k:
+            self.done += 0 if self.at_k is None else self.at_k.tracer.pair_tests
+            self.k, self.at_k = k, self.S.moved(self.motion.at(k))
+        return self.at_k
+
+    @property
+    def pair_tests(self) -> int:
+        return self.S.tracer.pair_tests + self.done + (0 if self.at_k is None else self.at_k.tracer.pair_tests)
+
+
 def reference_tiles(keep: Keep, sc: dict, sun: dict, conf: dict, device, dtype=torch.float32) -> dict:
     """The reference on every kept frame, computed in `dtype`, from its own
     state: its ldr and next history radiance on the tiles ({(frame, tile):
@@ -327,13 +415,14 @@ def reference_tiles(keep: Keep, sc: dict, sun: dict, conf: dict, device, dtype=t
     the cache it starts from.  The cache trains on every frame from a fresh
     one.  The chain's frames carry the reference's own SVGF history from a
     fresh start; the window's drawn frame takes the program's history before
-    it as its input."""
+    it as its input.  Where the traffic moves the instances, every frame is
+    traced against the reference's own scene moved to that frame's pose."""
     from benchmark.reference import frame as ref
     from benchmark.reference import nrc
 
     cfg = conf["render"]
     width, height = int(cfg["width"]), int(cfg["height"])
-    S = ref.RefScene(sc, sun, device, dtype)
+    scene = Poses(ref.RefScene(sc, sun, device, dtype), keep.frames.motion)
     path = keep.frames.path
     seconds = {}
 
@@ -346,7 +435,7 @@ def reference_tiles(keep: Keep, sc: dict, sun: dict, conf: dict, device, dtype=t
         cache = nrc.init_cache(device)
         init = cache
         for k in range(max(keep.kept) + 1):
-            cache, loss = nrc.train_pass(S, cam(k), cfg, k, cache)
+            cache, loss = nrc.train_pass(scene(k), cam(k), cfg, k, cache)
             if k in keep.kept:
                 caches[k], losses[k] = cache, loss
     seconds["cache_s"] = time.perf_counter() - t0
@@ -359,14 +448,14 @@ def reference_tiles(keep: Keep, sc: dict, sun: dict, conf: dict, device, dtype=t
 
     def render(k, i, region, hist):
         tile = keep.tiles[i][0]
-        o = ref.render_region(S, cam(k), cfg, k, region, hist, _moved(path, k, cfg), tracer(k))
+        o = ref.render_region(scene(k), cam(k), cfg, k, region, hist, _moved(path, k, cfg), tracer(k))
         inner = (tile[0] - region[0], tile[1] - region[0], tile[2] - region[2], tile[3] - region[2])
         tiles[(k, i)] = {"ldr": _crop(o["ldr"], inner).float(), "radiance": _crop(o["radiance"], inner).float()}
         return o["history"]
 
     t0 = time.perf_counter()
     tiles = {}
-    regions = chain_regions(S, path, cfg, keep.tiles, keep.chain)
+    regions = chain_regions(scene, path, cfg, keep.tiles, keep.chain)
     hists = [None] * len(keep.tiles)
     for k in range(keep.chain):
         for i in range(len(keep.tiles)):
@@ -377,7 +466,7 @@ def reference_tiles(keep: Keep, sc: dict, sun: dict, conf: dict, device, dtype=t
         for i, (_tile, region) in enumerate(keep.tiles):
             render(keep.drawn, i, region, before)
     seconds["frames_s"] = time.perf_counter() - t0
-    return {"tiles": tiles, "caches": caches, "losses": losses, "init": init, "pair_tests": S.tracer.pair_tests,
+    return {"tiles": tiles, "caches": caches, "losses": losses, "init": init, "pair_tests": scene.pair_tests,
             "seconds": seconds}
 
 
@@ -532,7 +621,8 @@ def run_frames(prog: Program, traffic: dict, sc: dict, conf: dict, limits: dict,
     off), or the traced windows (trace on).  Kept for the check: the chain
     of frames from the fresh start (warm-up frames first) and a frame of
     the window drawn from the seed (each rendered after the window,
-    untimed, where the window closed before it)."""
+    untimed, where the window closed before it).  A moving traffic's check
+    adds tiles on the moving instances."""
     from benchmark.reference.frame import halo, tile_regions
 
     cfg = prog.cfg
@@ -545,6 +635,9 @@ def run_frames(prog: Program, traffic: dict, sc: dict, conf: dict, limits: dict,
     if trace:
         offset %= 2 * int(traffic["idle_frames"]) + int(traffic["trace_frames"])
     frames = Frames(prog, traffic, sc, seed, device)
+    if frames.motion is not None:
+        tiles += frames.motion.tiles(np.random.default_rng([seed, 4]), frames.path, cfg.width, cfg.height,
+                                     int(check["tile"]), halo(svgf))
     keep = Keep(frames, tiles, int(check["chain_frames"]), warmup + offset)
     probes = Probes()
     if trace:
@@ -637,6 +730,8 @@ def run_steps(prog: Program, traffic: dict, sc: dict, conf: dict, limits: dict, 
     """Set-up drives the step through its first warmup_steps steps (the
     ones the reference follows), then the window: steps back to back for
     `seconds` (trace off), or the traced windows (trace on)."""
+    if "motion" in traffic:
+        raise ValueError("a steps traffic has no motion block: the train step runs on a still scene")
     steps = Steps(prog, traffic, sc, seed, device)
     probes = Probes()
     if trace:

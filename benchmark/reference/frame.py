@@ -24,9 +24,20 @@ it from outside.
 `dtype` is the precision of every value computed after the hits; the hits
 themselves are float32 in every case.  bfloat16 makes the precision
 control.
+
+A scene whose instances move (`RefScene.moved`) is the scene's raw arrays
+with each instance's rigid transform applied: positions, vertex normals and
+the tangents' xyz turn with it, the tangents' handedness w stays, as the
+glTF loader turns a node's tangent frame by the node's matrix.  A rigid
+transform turns the whole tangent frame, so a normal-mapped surface shades
+the same at every pose.  Face normals are worked out again from the moved
+edges at every hit (`RefScene.surface`), and the moved scene gets a tracer
+of its own.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -215,18 +226,10 @@ class RefScene:
 
     def __init__(self, sc: dict, sun: dict, device, dtype=torch.float32):
         self.device, self.dtype = device, dtype
-
-        def f(x):
-            return torch.as_tensor(np.asarray(x, np.float32), device=device).to(dtype)
-
-        tri_pos = torch.as_tensor(sc["tri_pos"], device=device)
-        self.tracer = ClusterTracer(tri_pos)
-        self.v0 = f(sc["tri_pos"][:, 0])
-        self.e1 = f(sc["tri_pos"][:, 1] - sc["tri_pos"][:, 0])
-        self.e2 = f(sc["tri_pos"][:, 2] - sc["tri_pos"][:, 0])
-        self.nrm = f(sc["tri_nrm"])
+        f = self._table
+        self._raw = {k: sc[k] for k in ("tri_pos", "tri_nrm", "tri_tan", "instance_of_tri")}
+        self._geometry(sc["tri_pos"], sc["tri_nrm"], sc["tri_tan"])
         self.uv = f(sc["tri_uv"])
-        self.tan = f(sc["tri_tan"])
         self.mat = torch.as_tensor(sc["tri_mat"].astype(np.int64), device=device)
         self.base = f(sc["mat_base_color"])
         self.rough = f(sc["mat_roughness"])
@@ -257,6 +260,30 @@ class RefScene:
         self.sun_rad = f(sun["radiance"])
         self.sun_tan = f(sun["tan_half_angle"])
         self.sky = f(sun["sky_color"])
+
+    def _table(self, x):
+        """A float32 array on the device, held in `dtype`."""
+        return torch.as_tensor(np.asarray(x, np.float32), device=self.device).to(self.dtype)
+
+    def _geometry(self, tri_pos: np.ndarray, tri_nrm: np.ndarray, tri_tan: np.ndarray) -> None:
+        """The triangles' arrays on the device, and a tracer over them."""
+        f = self._table
+        self.tracer = ClusterTracer(torch.as_tensor(tri_pos, device=self.device))
+        self.v0 = f(tri_pos[:, 0])
+        self.e1 = f(tri_pos[:, 1] - tri_pos[:, 0])
+        self.e2 = f(tri_pos[:, 2] - tri_pos[:, 0])
+        self.nrm = f(tri_nrm)
+        self.tan = f(tri_tan)
+
+    def moved(self, transforms: np.ndarray) -> RefScene:
+        """This scene with instance i's triangles moved by the rigid
+        transform transforms[i] ([I, 3, 4]: rows are world rows, the last
+        column the translation), from the raw arrays it was built from.
+        The moved scene shares the texels, mips, materials and sun."""
+        geo = move_instances(self._raw, transforms)
+        out = copy.copy(self)
+        out._geometry(geo["tri_pos"], geo["tri_nrm"], geo["tri_tan"])
+        return out
 
     def texel_rows(self, slot, level, uv):
         """Bilinear, REPEAT-wrapped fetch of the 12 channels at uv from
@@ -318,6 +345,23 @@ class RefScene:
         flip = torch.where(dot(ns, view) < 0.0, -1.0, 1.0).to(ns.dtype)[:, None]
         return {"position": pos, "normal_g": ng * flip, "normal_s": ns * flip, "albedo": albedo,
                 "roughness": clip(rough, 0.02, 1.0), "metalness": clip(metal, 0.0, 1.0), "emissive": emis}
+
+
+def move_instances(raw: dict, transforms: np.ndarray) -> dict:
+    """Float32 tri_pos, tri_nrm and tri_tan [T, 3, 4] of the raw arrays
+    with each triangle's instance's rigid transform applied in float64:
+    positions by the whole transform, normals and the tangents' xyz by its
+    rotation, the tangents' w kept."""
+    m = np.asarray(transforms, np.float64)[np.asarray(raw["instance_of_tri"], np.int64)]
+    rot, shift = m[:, None, :, :3], m[:, None, :, 3]
+
+    def turn(v):
+        return (rot @ np.asarray(v, np.float64)[..., None])[..., 0]
+
+    tan = np.array(raw["tri_tan"], np.float32)
+    tan[..., :3] = turn(tan[..., :3])
+    return {"tri_pos": (turn(raw["tri_pos"]) + shift).astype(np.float32),
+            "tri_nrm": turn(raw["tri_nrm"]).astype(np.float32), "tri_tan": tan}
 
 
 # ---------------------------------------------------------------------------
@@ -737,6 +781,28 @@ def tile_regions(rng: np.random.Generator, width: int, height: int, tile: int, m
         y_lo, x_lo = max(y_lo, 0), max(x_lo, 0)
         ty = int(rng.integers(y_lo, max(y_lo + 1, y_hi - tile + 1)))
         tx = int(rng.integers(x_lo, max(x_lo + 1, x_hi - tile + 1)))
+        t = (ty, min(ty + tile, height), tx, min(tx + tile, width))
+        r = (max(t[0] - margin, 0), min(t[1] + margin, height), max(t[2] - margin, 0), min(t[3] + margin, width))
+        out.append((t, r))
+    return out
+
+
+def point_tiles(rng: np.random.Generator, points: np.ndarray, vp: np.ndarray, width: int, height: int, tile: int,
+                margin: int, n: int):
+    """n tiles of tile x tile pixels, each about the image position (through
+    the view-projection `vp`) of a point drawn by `rng` among those of
+    `points` [P, 3] that land on the image, shifted to lie inside it, and
+    each one's region as tile_regions gives it; none where no point lands on
+    the image."""
+    p = np.concatenate([np.asarray(points, np.float64), np.ones((len(points), 1))], -1) @ np.asarray(vp, np.float64).T
+    w = np.where(p[:, 3] > 1e-8, p[:, 3], 1.0)
+    x = (p[:, 0] / w * 0.5 + 0.5) * width
+    y = (0.5 - p[:, 1] / w * 0.5) * height
+    on = np.nonzero((p[:, 3] > 1e-8) & (x >= 0) & (x < width) & (y >= 0) & (y < height))[0]
+    out = []
+    for j in (rng.choice(on, size=n) if on.size else []):
+        ty = min(max(int(y[j]) - tile // 2, 0), max(height - tile, 0))
+        tx = min(max(int(x[j]) - tile // 2, 0), max(width - tile, 0))
         t = (ty, min(ty + tile, height), tx, min(tx + tile, width))
         r = (max(t[0] - margin, 0), min(t[1] + margin, height), max(t[2] - margin, 0), min(t[3] + margin, width))
         out.append((t, r))

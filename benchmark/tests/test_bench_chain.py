@@ -14,8 +14,8 @@ from benchmark.reference.frame import halo, tile_regions
 from benchmark.tests.conftest import ROOT, SMALL
 
 
-@pytest.mark.parametrize("traffic", ["orbit", "still"])
-def test_chain_on_regions_equals_whole_frames(traffic):
+@pytest.mark.parametrize("traffic,moving", [("orbit", False), ("still", False), ("orbit", True)])
+def test_chain_on_regions_equals_whole_frames(traffic, moving):
     conf = json.loads((ROOT / "benchmark" / "configs" / "sponza247k-pt4.json").read_text())
     conf["scene"] = SMALL["nrc8-orbit" if traffic == "orbit" else "pt4-still"]["scene"]
     # Large enough that a tile's region (the stencils' 34 pixels about it)
@@ -30,12 +30,18 @@ def test_chain_on_regions_equals_whole_frames(traffic):
     seed = 2**31 + 41
     sc = scenes.build_scene(conf["scene"], seed)
     path = harness.CameraPath(spec, sc["aabb_min"], sc["aabb_max"], seed)
+    # Moving, each frame reprojects against the instances where that frame
+    # put them: every torus turns and slides.
+    motion = None
+    if moving:
+        spec_m = json.loads((ROOT / "benchmark" / "traffic" / "still-dynamic.json").read_text())["motion"]
+        motion = harness.Motion({**spec_m, "every": 1, "still_last": 5}, sc)
     # The lower quadrants' and the central tile: the upper ones see sky.
     tiles = tile_regions(np.random.default_rng(seed), cfg["width"], cfg["height"], 8, halo(cfg))[2:]
     whole = [(t, (0, cfg["height"], 0, cfg["width"])) for t, _r in tiles]
 
     def run(tl):
-        keep = SimpleNamespace(frames=SimpleNamespace(path=path), tiles=tl, chain=3, drawn=2,
+        keep = SimpleNamespace(frames=SimpleNamespace(path=path, motion=motion), tiles=tl, chain=3, drawn=2,
                                kept={k: {} for k in range(3)})
         return harness.reference_tiles(keep, sc, harness.sun_of(conf["sun"]), conf, "cpu")["tiles"]
 
