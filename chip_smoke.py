@@ -1272,7 +1272,7 @@ def rebuilt(fs, renderer):
 
     from nebulae_tpu_torch.engine.renderer import Renderer
 
-    host = {k: renderer.scene[k].cpu().numpy() for k in ("tri_pos", "tri_nrm", "tri_face_nrm")}
+    host = {k: renderer.scene[k].cpu().numpy() for k in ("tri_pos", "tri_nrm", "tri_tan", "tri_face_nrm")}
     return Renderer(dataclasses.replace(fs, **host), renderer.cfg)
 
 

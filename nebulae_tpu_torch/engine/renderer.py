@@ -13,7 +13,12 @@ The frame's phases run under profiler ranges (`utils.profiling.span`) named
 radiance cache nrc_train, then nrc_query in place of pathtrace), so a
 profiler trace can attribute device time to them; inside svgf,
 "nebulae/svgf_reproject" spans the history's warp when the camera moved,
-and "nebulae/sync/same_camera" the host's test of whether it moved.
+and "nebulae/sync/same_camera" the host's test of whether it moved.  Each
+call of `update_instances` or `update_geometry` runs under one
+"nebulae/refit" range (the transform, the triangle rows, the BVH refit and
+the tables' repacks), with the upload of its inputs under
+"nebulae/sync/transforms" or "nebulae/sync/geometry", and advances the
+counters "refit.calls", "refit.triangles" and "refit.levels".
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from nebulae_tpu_torch.passes.pathtrace import path_trace
 from nebulae_tpu_torch.passes.svgf import init_history, reproject_history, svgf_denoise
 from nebulae_tpu_torch.passes.tonemap import aces_tonemap
 from nebulae_tpu_torch.tracer.trace import make_tracer
+from nebulae_tpu_torch.utils.metrics import count
 from nebulae_tpu_torch.utils.profiling import span
 
 
@@ -328,6 +334,7 @@ class Renderer:
             self._instance_of_tri = torch.as_tensor(np.asarray(flat_scene.instance_of_tri)).to(self.device)
             self._base_tri_pos = self.scene["tri_pos"].clone()
             self._base_tri_nrm = self.scene["tri_nrm"].clone()
+            self._base_tri_tan = self.scene["tri_tan"].clone()
         self._refit = None
         self.sun = (sun if sun is not None else SunLight.default(self.device)).to(self.device)
         self.state = init_frame_state(cfg, self.device, self.world)
@@ -359,31 +366,42 @@ class Renderer:
     @torch.no_grad()
     def update_instances(self, transforms):
         """Move rigid instances: per-instance 3x4 transforms [I, 3, 4] map
-        the base (load-time) triangles and normals, then update_geometry
-        refits.  Needs a scene built with FlatScene.instance_of_tri."""
+        the base (load-time) triangles, normals and tangent frames, then
+        the refit of update_geometry follows.  Needs a scene built with
+        FlatScene.instance_of_tri."""
         if self._instance_of_tri is None:
             raise ValueError("scene has no instance table (FlatScene.instance_of_tri); "
                              "use update_geometry for free-form motion")
-        pos, nrm = transform_instances(self._base_tri_pos, self._base_tri_nrm, self._instance_of_tri,
-                                       transforms)
-        self.update_geometry(pos, tri_nrm=nrm)
+        self._prepare_refit()
+        with span("nebulae/refit"):
+            self._refit(*transform_instances(self._base_tri_pos, self._base_tri_nrm, self._base_tri_tan,
+                                             self._instance_of_tri, transforms))
 
     @torch.no_grad()
-    def update_geometry(self, tri_pos, tri_nrm=None):
+    def update_geometry(self, tri_pos, tri_nrm=None, tri_tan=None):
         """Dynamic scene: new world triangles [T, 3, 3] (and optionally
-        vertex normals [T, 3, 3]) with the same topology.  Rewrites the
-        scene's triangle rows, refits the BVH bounds and the route's tables
-        in place, on the device.  A chunked scene ("tri" or "subtree") is
-        first repacked to the "paged" route, as JAX does; a chunked fat2
-        scene raises NotImplementedError.  The scene's AABB keeps its
-        build-time value, so motion should stay inside it."""
+        vertex normals [T, 3, 3] and tangents [T, 3, 4]) with the same
+        topology.  Rewrites the scene's triangle rows, refits the BVH bounds
+        and the route's tables in place, on the device.  Without tri_tan the
+        tangents stay as they are: a free-form move has no rotation to turn
+        them by (update_instances turns them).  A chunked scene ("tri" or
+        "subtree") is first repacked to the "paged" route, as JAX does; a
+        chunked fat2 scene raises NotImplementedError.  The scene's AABB
+        keeps its build-time value, so motion should stay inside it."""
+        self._prepare_refit()
+        with span("nebulae/refit"):
+            with span("nebulae/sync/geometry"):
+                pos, nrm, tan = (None if x is None else torch.as_tensor(x, dtype=torch.float32).to(self.device)
+                                 for x in (tri_pos, tri_nrm, tri_tan))
+            self._refit(pos, nrm, tan)
+
+    def _prepare_refit(self):
+        """The refit's set-up, once: the switch of a chunked route to paged
+        and the refit's plan on the device."""
         if self.route in ("tri", "subtree"):
             self._route_chunked_to_paged()
         if self._refit is None:
             self._refit = self._build_refit()
-        pos = torch.as_tensor(tri_pos, dtype=torch.float32).to(self.device)
-        nrm = None if tri_nrm is None else torch.as_tensor(tri_nrm, dtype=torch.float32).to(self.device)
-        self._refit(pos, nrm)
 
     def _route_chunked_to_paged(self):
         """Replace chunked tables by one fat4 table on the paged route,
@@ -420,7 +438,7 @@ class Renderer:
             elif "fatnodes" in self.tables:
                 plan["inner_idx"] = to_dev(self.tables["inner_idx"])
 
-        def refit(pos, nrm):
+        def refit(pos, nrm, tan):
             scene = self.scene
             t = pos.shape[0]
             e1 = pos[:, 1] - pos[:, 0]
@@ -430,6 +448,10 @@ class Renderer:
             shade = scene["tri_nrm"] if nrm is None else nrm
             flip = dot(fn, shade.mean(dim=1), keepdims=False) < 0.0
             fn = torch.where(flip[:, None], -fn, fn)
+            # A triangle that kept its corners and normals keeps its face
+            # normal bit for bit.
+            same = (pos == scene["tri_pos"]).flatten(1).all(1) & (shade == scene["tri_nrm"]).flatten(1).all(1)
+            fn = torch.where(same[:, None], scene["tri_face_nrm"], fn)
             geom = scene["tri_geom"].clone()
             fast = scene["tri_fast"].clone()
             geom[:, 0:3] = pos[:, 0]
@@ -440,7 +462,13 @@ class Renderer:
                 geom[:, 9:18] = nrm.reshape(t, 9)
                 fast[:, 0:9] = nrm.reshape(t, 9)
                 scene["tri_nrm"] = nrm
+            if tan is not None:
+                geom[:, 24:36] = tan.reshape(t, 12)
+                scene["tri_tan"] = tan
             scene.update(tri_pos=pos, tri_face_nrm=fn, tri_geom=geom, tri_fast=fast)
+            count("refit.calls")
+            count("refit.triangles", t)
+            count("refit.levels", 0 if plan is None else len(plan["levels"]))
             if plan is None:
                 return
             lo, hi = refit_bvh(plan["topo"], pos, plan["levels"], plan["max_leaf"])

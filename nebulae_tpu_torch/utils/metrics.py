@@ -16,7 +16,10 @@ advances where the number is already on the host (no sync, no device op):
     filter (kernels/svgf.py);
   * "nrc.query_rows", "nrc.query_full": rows the query pass's inline
     resolve gave the cache, and the lanes times resolves a full-width
-    resolve would have given it (passes/nrc_pathtrace.py).
+    resolve would have given it (passes/nrc_pathtrace.py);
+  * "refit.calls", "refit.triangles", "refit.levels": scene updates, the
+    triangle rows each rewrote and the BVH levels each walked
+    (engine/renderer.py, update_instances and update_geometry).
 """
 
 from __future__ import annotations

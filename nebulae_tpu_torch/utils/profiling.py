@@ -13,7 +13,8 @@ The port's ranges are named "nebulae/<what>": a frame's phases
 (engine/renderer.py), the train step's (engine/train.py), the cache MLP
 (nrc/mlp.py) and encoding (nrc/encoding.py), each walk of the tracer
 ("nebulae/trace/closest", "/combo", "/any"; tracer/trace.py), each a-trous
-pass ("nebulae/atrous"; kernels/svgf.py), and each place where the host
+pass ("nebulae/atrous"; kernels/svgf.py), each scene update's refit
+("nebulae/refit"; engine/renderer.py), and each place where the host
 waits on the device, "nebulae/sync/<site>".
 """
 

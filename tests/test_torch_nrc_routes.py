@@ -25,7 +25,8 @@ The chunk limits are shrunk with monkeypatch on both packages, as there.
     cache) at the NRC tolerance with the hit mask equal.  On the subtree
     route the same move against JAX's update_instances and NRC frame (on
     the CPU JAX's auto tracer is its XLA walk, which reads no chunk
-    table), at the NRC tolerance; a chunked fat2 scene raises
+    table), at the NRC tolerance, with the turned tangents written into
+    JAX's tri_geom (its refit keeps the load-time ones); a chunked fat2 scene raises
     NotImplementedError in both packages.
   * A 32x32 NRC train step on the triangle-chunk route against the single
     table: loss to a relative 1e-3, each gradient at a cosine >= 0.999
@@ -176,6 +177,15 @@ def _moves(fs):
     return _transforms(int(fs.instance_of_tri.max()) + 1, float((fs.aabb_max - fs.aabb_min).max()))
 
 
+def _turned_tangents(fs) -> np.ndarray:
+    """The scene's tangents with their xyz turned by hand by each
+    instance's rotation in _moves, their w kept: [T, 12] rows of tri_geom."""
+    rot = _moves(fs)[fs.instance_of_tri][:, :, :3].astype(np.float64)
+    tan = fs.tri_tan.copy()
+    tan[..., :3] = np.einsum("tij,tvj->tvi", rot, tan[..., :3])
+    return tan.reshape(-1, 12)
+
+
 def _refit(setup, route):
     """A route's renderer after update_instances: (renderer, frame)."""
     r = _renderer(setup, route)
@@ -195,7 +205,7 @@ def test_nrc_refit_matches_rebuild(setup, single, route):
     from nebulae_tpu_torch.interop import nrc_state_from_arrays
 
     r, out = _refit(setup, route)
-    host = {k: r.scene[k].numpy() for k in ("tri_pos", "tri_nrm", "tri_face_nrm")}
+    host = {k: r.scene[k].numpy() for k in ("tri_pos", "tri_nrm", "tri_tan", "tri_face_nrm")}
     moved = dataclasses.replace(setup["fs"], **host)  # the build-time AABB stays
     wide = ROUTES[route][0]
     rebuilt = Renderer(moved, RenderConfig(**KW, bvh_wide=wide), device="cpu")
@@ -224,6 +234,9 @@ def test_nrc_refit_matches_jax(setup, single):
         jr = JRenderer(JFlatScene(**fs.field_arrays()), JCfg(**{**KW, "chunk_mode": "subtree"}))
     jaabb = (np.asarray(jr.scene["aabb_min"]), np.asarray(jr.scene["aabb_max"]))
     jr.update_instances(_moves(fs))
+    # JAX's refit keeps the load-time tangents: its scene gets the turned
+    # ones here, as the port's update_instances writes them.
+    jr.scene["tri_geom"] = jr.scene["tri_geom"].at[:, 24:36].set(_turned_tangents(fs))
     assert "chunks" not in jr.bvh and "nrc" in jr.state
     np.testing.assert_array_equal(np.asarray(jr.scene["aabb_min"]), jaabb[0])
     np.testing.assert_array_equal(np.asarray(jr.scene["aabb_max"]), jaabb[1])
@@ -231,6 +244,7 @@ def test_nrc_refit_matches_jax(setup, single):
                                                          fov_y_deg=cam.fov_y_deg)).items()}
     r, out = _refit(setup, "subtree")
     np.testing.assert_allclose(r.scene["tri_pos"].numpy(), np.asarray(jr.scene["tri_pos"]), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(r.scene["tri_geom"].numpy(), np.asarray(jr.scene["tri_geom"]), rtol=1e-6, atol=1e-6)
     assert_nrc_frame_close(out, j, "subtree refit against JAX")
     assert (single["out"]["ldr"] != j["ldr"]).any(-1).mean() > 0.01
 

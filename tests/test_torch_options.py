@@ -185,7 +185,7 @@ def test_fast_shading_after_refit_matches_rebuild(setup):
     img = hdr(r)
     assert not torch.equal(r.scene["tri_fast"], fast0)
     assert np.abs(img - img0).max() > 1e-3  # it moved
-    host = {k: r.scene[k].numpy() for k in ("tri_pos", "tri_nrm", "tri_face_nrm")}
+    host = {k: r.scene[k].numpy() for k in ("tri_pos", "tri_nrm", "tri_tan", "tri_face_nrm")}
     rebuilt = Renderer(dataclasses.replace(fs, **host), cfg, device="cpu")
     assert torch.equal(r.scene["tri_fast"], rebuilt.scene["tri_fast"])
     np.testing.assert_allclose(img, hdr(rebuilt), rtol=1e-4, atol=1e-5)

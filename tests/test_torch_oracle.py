@@ -191,20 +191,22 @@ def test_routes_match_reference(atrium, route):
     hold(out, ref, gbuf, 1e-3, 2e-4, f"atrium path-traced on {route}")
 
 
-def _baked(fs, moved, nrm=None):
+def _baked(fs, moved, nrm=None, tan=None):
     from nebulae_tpu_torch.core.scene import face_normals
 
     nrm = fs.tri_nrm if nrm is None else nrm
+    tan = fs.tri_tan if tan is None else tan
     return dataclasses.replace(fs, tri_pos=moved.astype(np.float32), tri_nrm=nrm.astype(np.float32),
+                               tri_tan=tan.astype(np.float32),
                                tri_face_nrm=face_normals(moved.astype(np.float32), nrm.astype(np.float32)))
 
 
 @pytest.mark.parametrize("update", ["instances", "geometry", "geometry_paged"])
 def test_refit_frames_match_reference(atrium, update):
-    """A frame after update_instances (one torus turns and rises) and after
-    update_geometry (a shear and a drop of every triangle; also from the
-    paged route), against the reference tracer on the moved triangles,
-    baked into a fresh scene."""
+    """A frame after update_instances (one torus turns and rises, its
+    tangent frame with it) and after update_geometry (a shear and a drop of
+    every triangle; also from the paged route), against the reference
+    tracer on the moved triangles, baked into a fresh scene."""
     from nebulae_tpu_torch.engine.renderer import Renderer
 
     s = atrium
@@ -216,18 +218,21 @@ def test_refit_frames_match_reference(atrium, update):
     if update == "instances":
         m = _transforms(int(fs.instance_of_tri.max()) + 1, ext)
         r.update_instances(m)
-        moved, nrm = fs.tri_pos.copy(), fs.tri_nrm.copy()
+        # By hand, in float64 and rounded once, as update_instances does.
+        moved, nrm, tan = fs.tri_pos.copy(), fs.tri_nrm.copy(), fs.tri_tan.copy()
         m1 = fs.instance_of_tri == 1
-        moved[m1] = np.einsum("ij,tvj->tvi", m[1, :, :3], moved[m1]) + m[1, :, 3]
-        nrm[m1] = np.einsum("ij,tvj->tvi", m[1, :, :3], nrm[m1])
+        m64 = m.astype(np.float64)
+        moved[m1] = np.einsum("ij,tvj->tvi", m64[1, :, :3], moved[m1]) + m64[1, :, 3]
+        nrm[m1] = np.einsum("ij,tvj->tvi", m64[1, :, :3], nrm[m1])
+        tan[m1, :, :3] = np.einsum("ij,tvj->tvi", m64[1, :, :3], tan[m1, :, :3])
     else:
-        moved, nrm = fs.tri_pos.copy(), None
+        moved, nrm, tan = fs.tri_pos.copy(), None, None
         moved[..., 0] += 0.02 * ext * np.sin(moved[..., 1] / ext)
         moved[..., 1] -= 0.01 * ext
         r.update_geometry(moved)
     out = r.render(s["cam"])
     assert float((out["hdr"] - before).abs().max()) > 1e-3  # it moved
-    baked = {**_baked(fs, moved, nrm).device_arrays(), "env_map": s["env"]}
+    baked = {**_baked(fs, moved, nrm, tan).device_arrays(), "env_map": s["env"]}
     ref, gbuf = _reference(s, cfg, frame=1, arrays=baked)
     hold(out, ref, gbuf, 1e-3, 2e-4, f"atrium after update_{update}")
 

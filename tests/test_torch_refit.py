@@ -328,8 +328,8 @@ def test_transform_instances_matches_jax(textured):
     fs, _ = textured
     assert fs.instance_of_tri is not None and fs.instance_of_tri.max() == 2  # two tori and the plane
     m = _transforms(3, _ext(fs))
-    pos, nrm = transform_instances(torch.from_numpy(fs.tri_pos), torch.from_numpy(fs.tri_nrm),
-                                   torch.from_numpy(fs.instance_of_tri), m)
+    pos, nrm, _tan = transform_instances(torch.from_numpy(fs.tri_pos), torch.from_numpy(fs.tri_nrm),
+                                         torch.from_numpy(fs.tri_tan), torch.from_numpy(fs.instance_of_tri), m)
     jpos, jnrm = jtransform(fs.tri_pos, fs.tri_nrm, fs.instance_of_tri, m)
     np.testing.assert_allclose(pos.numpy(), np.asarray(jpos), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(nrm.numpy(), np.asarray(jnrm), rtol=1e-6, atol=1e-6)
@@ -351,12 +351,15 @@ def test_update_instances_matches_baked_rebuild(textured):
     r.update_instances(m)
     img = _hdr(r, cam)
     assert np.abs(img - img0).max() > 1e-3  # it moved
-    # Baked: instance 1's triangles and normals transformed by hand.
-    moved, nrm = fs.tri_pos.copy(), fs.tri_nrm.copy()
+    # Baked: instance 1's triangles, normals and tangents' xyz transformed by
+    # hand, in float64 and rounded once, as update_instances does.
+    moved, nrm, tan = fs.tri_pos.copy(), fs.tri_nrm.copy(), fs.tri_tan.copy()
     m1 = fs.instance_of_tri == 1
-    moved[m1] = np.einsum("ij,tvj->tvi", m[1, :, :3], moved[m1]) + m[1, :, 3]
-    nrm[m1] = np.einsum("ij,tvj->tvi", m[1, :, :3], nrm[m1])
-    baked = dataclasses.replace(fs, tri_pos=moved, tri_nrm=nrm, tri_face_nrm=face_normals(moved, nrm))
+    m64 = m.astype(np.float64)
+    moved[m1] = np.einsum("ij,tvj->tvi", m64[1, :, :3], moved[m1]) + m64[1, :, 3]
+    nrm[m1] = np.einsum("ij,tvj->tvi", m64[1, :, :3], nrm[m1])
+    tan[m1, :, :3] = np.einsum("ij,tvj->tvi", m64[1, :, :3], tan[m1, :, :3])
+    baked = dataclasses.replace(fs, tri_pos=moved, tri_nrm=nrm, tri_tan=tan, tri_face_nrm=face_normals(moved, nrm))
     np.testing.assert_allclose(img, _hdr(Renderer(baked, cfg, device="cpu"), cam), rtol=FRAME_RTOL, atol=FRAME_ATOL)
 
 
