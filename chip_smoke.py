@@ -21,12 +21,15 @@ Phases (any failure raises and exits non-zero):
               and with phi_normal 64
   5. slice    Renderer.render at 1920x1080, 1 spp, 4 bounces, full shading,
               SVGF, ACES: 3 warm-up and 5 timed frames, with every kernel's
-              launch count read around them; then a 64x64 frame on the GPU
-              against the same frame on the CPU through the plain versions
+              launch count (K9's too: 4 a frame) read around them, one
+              profiled (K9 among the port kernels listed); then a 64x64
+              frame on the GPU against the same frame on the CPU through
+              the plain versions
   6. train    make_train_step at the same width (MSE to a zero target, Adam
               on the material tables and the sun): 1 warm-up and 3 timed
               steps with params held fixed and the frame state threaded, the
-              launch counts read around them, one step profiled; then a
+              launch counts read around them (K9's 4 a step, its backward
+              the twin's), one step profiled; then a
               64x64 step on the GPU against the CPU through the plain versions
   7. large    scenes past the single-table gate.  The ~247k-triangle
               large_scene on each chunk_mode (auto -> one table, subtree,
@@ -163,7 +166,17 @@ Phases (any failure raises and exits non-zero):
               frame's and the reference's seconds, and the reference's pair
               tests per second; >= 99.9% of pixels and hit decisions must
               agree
- 15. summary  one {"kernels": [...]} line, then the device line last
+ 15. vertex   K9 (the path vertex's draws and ray keys) against its plain
+              twin on each of its launches in a 1080p frame (4: three
+              bounce vertices and the last) and in a 1080p NRC frame on
+              bench_atrium at 8 vertices (16: the query pass's and the
+              training walk's), every output bit for bit; the kernel's
+              device ms, a call's and the twin's ms (CUDA events) against
+              the byte bound; a 1080p train step through K9 (4 launches)
+              against the same step with the twin forced: image and loss
+              bit for bit, each gradient as close as two twin steps are
+              to each other (the backward's atomic sums)
+ 16. summary  one {"kernels": [...]} line, then the device line last
 Each phase logs its seconds; each profile lists every launch of a port
 kernel with its grid, block, registers and time.  Imports nothing of JAX or
 of the JAX package.
@@ -468,8 +481,8 @@ def path_rays(scene, closest, sun, cam):
     import torch
 
     from nebulae_tpu_torch.core import brdf
+    from nebulae_tpu_torch.kernels.vertex import ray_sort_key
     from nebulae_tpu_torch.passes.gbuffer import camera_rays, render_gbuffer
-    from nebulae_tpu_torch.tracer.sorting import ray_sort_key
 
     o, d = camera_rays(cam, WIDTH, HEIGHT)
     o, d = o.contiguous(), d.contiguous()
@@ -697,7 +710,7 @@ def _grad_report(opt) -> dict:
 
 # Kernel names as the profiler shows them; "combo_fat4", "any_fat4" and
 # "combo_fat_" take both bodies of K2, K3 and K7b.
-FAT4_KERNELS = ("closest_fat4_kernel", "combo_fat4", "any_fat4", "atrous_fwd_kernel")
+FAT4_KERNELS = ("closest_fat4_kernel", "combo_fat4", "any_fat4", "atrous_fwd_kernel", "vertex_kernel")
 FAT2_KERNELS = ("closest_fat_kernel", "combo_fat_", "any_fat_", "atrous_fwd_kernel")
 NODE_KERNELS = ("closest_node", "any_node")  # both bodies of each K8 walk
 
@@ -743,6 +756,7 @@ def train_phase(renderer, cam, cfg, wrappers, kernel_names=FAT4_KERNELS, what="t
         assert float(grads[name].abs().max()) > 0.0, f"zero gradient of {name}"
     per_step = {name: c / 4 for name, c in launches.items()}
     assert per_step["atrous_fwd"] == 4 and per_step["atrous_bwd"] == 4, f"a-trous launches {launches}"
+    assert per_step.get("vertex", cfg.max_bounces) == cfg.max_bounces, f"K9 launches {launches}"
     missing = [name for name, c in launches.items() if c == 0]
     assert not missing, f"kernels not launched on the train path: {missing}"
     step_s = sum(times) / len(times)
@@ -3260,6 +3274,206 @@ def oracle_phase(fs_bench, bvh_bench) -> None:
         counter.close()
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the vertex kernel (K9)
+# ---------------------------------------------------------------------------
+
+# Device-memory bytes of a K9 lane: the bounce form reads 77 (five rows of
+# 3 floats, roughness, metalness, alive, the int64 state) and writes 86
+# (five rows, two floats, two masks, the state, the key); the last form
+# writes 57 (three rows, a float, a mask, the state, the key).  No key: 8
+# fewer.
+VERTEX_LANE_BYTES = {False: 77 + 86, True: 77 + 57}
+
+
+def vertex_launches(render) -> list:
+    """The inputs of each K9 launch of one render(), through its record
+    hook, as (last, surf, view, sun, alive, rng_state, aabb)."""
+    from nebulae_tpu_torch.kernels import vertex as kv
+
+    kv.vertex_kernel.record = []
+    try:
+        render()
+    finally:
+        recs, kv.vertex_kernel.record = kv.vertex_kernel.record, None
+    return recs
+
+
+def kernel_device_ms(fn, runs: int = 7) -> float:
+    """Device ms of one launch of fn(), apart from its wrapper's host work:
+    CUDA events around `runs` launches that the host queues while the
+    device sleeps (torch.cuda._sleep), so that the events time the
+    launches back to back; the mean of the runs."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25 ms at the H100's clocks, past the host's queueing
+    a.record()
+    for _ in range(runs):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / runs
+
+
+def hold_vertex(what, rec) -> dict:
+    """K9 on a recorded launch against its twin: states, masks, keys and
+    float outputs compared bit for bit (each output's differing lanes);
+    one call's ms with its wrapper's host work and the twin's (CUDA
+    events, median of 7), and the byte bound.  The entry's "kernel"
+    relaunches it, for kernel_device_ms."""
+    import torch
+
+    from nebulae_tpu_torch.kernels import vertex as kv
+
+    last, surf, view, sun, alive, state, aabb = rec
+    n = int(state.shape[0])
+
+    def kernel():
+        return kv.vertex_kernel(last, surf, view, sun, alive, state, aabb)
+
+    def plain():
+        rng, out = (kv.last_draws_plain if last else kv.bounce_draws_plain)(surf, view, sun, alive, state)
+        if aabb is not None:
+            out["key"] = kv.ray_sort_key(out["origin"], out["l"] if last else out["new_d"], *aabb)
+        return rng, out
+
+    with torch.no_grad():
+        rng_k, out_k = kernel()
+        rng_p, out_p = plain()
+        diff = {"rng": int((rng_k != rng_p).sum())}
+        for k, w in out_p.items():
+            g = out_k[k]
+            if w.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            diff[k] = int((g != w).reshape(n, -1).any(1).sum())
+        call_ms = timed_ms(kernel)
+        plain_ms = timed_ms(plain)
+    bound = n * (VERTEX_LANE_BYTES[last] - (0 if aabb is not None else 8)) / HBM_BYTES_PER_S * 1e3
+    return {"what": what, "form": "last" if last else "bounce", "n": n, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "diff": diff, "kernel": kernel,
+            "differing": sum(diff.values())}
+
+
+def log_held_vertices(held) -> None:
+    """Each held launch's line, with the kernel's device ms."""
+    for h in held:
+        h["ms"] = ms = kernel_device_ms(h.pop("kernel"))
+        log(f"{h['what']}: {h['form']} form, {h['n']} lanes, kernel {ms:.4f} ms (a call with its wrapper "
+            f"{h['call_ms']:.4f}), plain {h['plain_ms']:.3f} ms, bound {h['bound_ms']:.4f} ms (bytes), "
+            f"kernel/bound {ms / h['bound_ms'] if h['bound_ms'] else 0:.2f}; lanes differing "
+            f"{json.dumps(h['diff'])}")
+
+
+def hold_train_step(r, cfg, cam_obj) -> bool:
+    """A 1080p train step through K9 (its backward runs the twin again)
+    against the same step with the twin forced, run twice: the image and
+    the loss bit for bit, and each gradient as close as the twin's two
+    steps are to each other (bit for bit where they are).  Logs K9's
+    launches in the step and each gradient's largest differences."""
+    import torch
+
+    from nebulae_tpu_torch.engine.renderer import init_frame_state
+    from nebulae_tpu_torch.engine.train import make_train_step, split_scene_params
+    from nebulae_tpu_torch.kernels import vertex as kv
+    from nebulae_tpu_torch.passes.gbuffer import make_camera_arrays
+
+    params, frozen = split_scene_params(r.scene)
+    params["sun"] = r.sun
+    cam = make_camera_arrays(cam_obj, WIDTH, HEIGHT, r.device)
+    target = torch.zeros((HEIGHT, WIDTH, 3), dtype=torch.float32, device=r.device)
+
+    def run():
+        opt = _recording_adam()
+        step, _ = make_train_step(cfg, frozen, r.tables, optimizer=opt, device=r.device)
+        _p, _o, _s, loss, img = step(params, opt.init(params), cam, init_frame_state(cfg, r.device), target)
+        return loss.detach(), img.detach(), _grad_report(opt)
+
+    before = kv.vertex_kernel.launches
+    k9 = run()
+    n = kv.vertex_kernel.launches - before
+    kernel_runs = kv._kernel_runs
+    kv._kernel_runs = lambda view: False
+    try:
+        twin_a, twin_b = run(), run()
+    finally:
+        kv._kernel_runs = kernel_runs
+    assert kv.vertex_kernel.launches == before + n
+    same = torch.equal(k9[0], twin_a[0]) and torch.equal(k9[1], twin_a[1])
+    worst = {}
+    for name, g in k9[2].items():
+        d_k9 = float((g - twin_a[2][name]).abs().max())
+        d_twin = float((twin_b[2][name] - twin_a[2][name]).abs().max())
+        worst[name] = (d_k9, d_twin)
+        same = same and (d_k9 == 0.0 if d_twin == 0.0 else d_k9 <= 10.0 * d_twin)
+    log(f"vertex: a {WIDTH}x{HEIGHT} train step: {n} K9 launches; against the twin's step: image and loss "
+        f"{'bit-equal' if torch.equal(k9[1], twin_a[1]) and torch.equal(k9[0], twin_a[0]) else 'DIFFER'}, "
+        f"largest gradient differences (K9 - twin, twin - twin) {json.dumps(worst)}")
+    assert n == cfg.max_bounces, f"K9 launches in a train step: {n}"
+    return same
+
+
+def vertex_phase(base_cfg, fs, bvh) -> dict:
+    """Phase 15: K9 against its twin on every launch of a 1080p frame of
+    the main path (4 bounces: 3 bounce vertices and the last) and of an NRC
+    frame (8 vertices: the query pass's 7 + 1 and the training walk's
+    7 + 1) on bench_atrium, and a 1080p train step through K9 against the
+    same step through the twin; launches per frame and step logged.
+    Returns the summary's K9 entry."""
+    import dataclasses
+
+    import torch
+
+    from nebulae_tpu_torch.engine.renderer import Renderer
+    from nebulae_tpu_torch.kernels import vertex as kv
+    from nebulae_tpu_torch.utils.metrics import totals
+    from nebulae_tpu_torch.utils.testscenes import atrium_camera, bench_atrium, bench_camera
+
+    r = Renderer(fs, base_cfg, bvh=bvh)
+    cam_obj = bench_camera(fs)
+    r.render(cam_obj)
+    before, lanes = kv.vertex_kernel.launches, totals().get("vertex.kernel_lanes", 0)
+    recs = vertex_launches(lambda: r.render(cam_obj))
+    per_frame = kv.vertex_kernel.launches - before
+    log(f"vertex: a {WIDTH}x{HEIGHT} frame at {base_cfg.max_bounces} bounces: {per_frame} K9 launches, "
+        f"{totals().get('vertex.kernel_lanes', 0) - lanes} lanes")
+    assert per_frame == base_cfg.max_bounces == len(recs), f"K9 launches a frame: {per_frame}"
+    held = [hold_vertex(f"vertex frame launch {i}", rec) for i, rec in enumerate(recs)]
+    log_held_vertices(held)
+    del recs
+
+    held_step = hold_train_step(r, base_cfg, cam_obj)
+    del r
+    torch.cuda.empty_cache()
+
+    fa = bench_atrium(seed=0)
+    cfg = dataclasses.replace(base_cfg, enable_nrc=True, max_bounces=8, nrc_max_path_vertices=8)
+    ra = Renderer(fa, cfg)
+    cam_a = atrium_camera(fa)
+    ra.render(cam_a)
+    before = kv.vertex_kernel.launches
+    recs = vertex_launches(lambda: ra.render(cam_a))
+    per_frame = kv.vertex_kernel.launches - before
+    log(f"vertex: a {WIDTH}x{HEIGHT} NRC frame at {cfg.max_bounces} vertices on bench_atrium: {per_frame} K9 "
+        f"launches ({[rec[5].shape[0] for rec in recs]} lanes)")
+    assert per_frame == cfg.max_bounces + cfg.nrc_max_path_vertices == len(recs), f"K9 NRC launches {per_frame}"
+    held_nrc = [hold_vertex(f"vertex NRC frame launch {i}", rec) for i, rec in enumerate(recs)]
+    log_held_vertices(held_nrc)
+    del recs, ra
+    torch.cuda.empty_cache()
+
+    differing = sum(h["differing"] for h in held + held_nrc)
+    log(f"vertex: {len(held) + len(held_nrc)} launches held: {differing} lanes differ from the twin's (states, "
+        f"masks, keys and float outputs compared bit for bit)")
+    assert differing == 0, "K9 differs from its plain twin"
+    assert held_step, "a train step through K9 differs from the twin's"
+    return {"max_abs_err": 0.0, "ms": sum(h["ms"] for h in held), "plain_ms": sum(h["plain_ms"] for h in held),
+            "bound_ms": sum(h["bound_ms"] for h in held), "bound_by": "bytes"}
+
+
 def bench_renderer(width=WIDTH, height=HEIGHT, bvh=None):
     """The ~139k-triangle bench scene's BVH (the C++ builder, unless one is
     given) and a Renderer of the main path's configuration -> (fs, bvh,
@@ -3715,6 +3929,7 @@ def main() -> int:
     from nebulae_tpu_torch.kernels import chunks as kc
     from nebulae_tpu_torch.kernels import svgf as ksvgf
     from nebulae_tpu_torch.kernels import trace as kt
+    from nebulae_tpu_torch.kernels import vertex as kv
     from nebulae_tpu_torch.kernels.build import host_native, native
     from nebulae_tpu_torch.passes.gbuffer import make_camera_arrays
     from nebulae_tpu_torch.utils.testscenes import bench_camera, textured_scene
@@ -3959,6 +4174,7 @@ def main() -> int:
         "shadow_closest_fat4": kt.shadow_closest_fat4,
         "any_fat4": kt.any_hit_fat4,
         "atrous_fwd": ksvgf.atrous_step,
+        "vertex": kv.vertex_kernel,
     }
     for fn in wrappers.values():
         fn.launches = 0
@@ -3978,12 +4194,14 @@ def main() -> int:
     assert float(ldr.std()) > 1e-3, "constant frame"
     missing = [name for name, c in launches.items() if c == 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
+    assert launches["vertex"] == 8 * cfg.max_bounces, f"K9 launches in 8 frames: {launches['vertex']}"
     frame_s = sum(times) / len(times)
     rays = WIDTH * HEIGHT * (1 + SPP * (2 * BOUNCES - 1))
     log(f"slice: {frame_s * 1e3:.2f} ms/frame (mean of 5; frames {[round(t * 1e3, 2) for t in times]}), "
         f"{rays / frame_s / 1e6:.2f} Mrays/s, ldr mean {float(ldr.mean()):.4f}, launches {launches}, "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_frame(lambda: renderer.render(cam_obj), FAT4_KERNELS, frame_s * 1e3)
+    seen = profile_frame(lambda: renderer.render(cam_obj), FAT4_KERNELS, frame_s * 1e3)["launches"]
+    assert seen["vertex_kernel"] == cfg.max_bounces, f"the profiled frame lists {seen['vertex_kernel']} K9 launches"
 
     # A small frame on the GPU against the CPU through the plain versions.
     small_frame_check(textured_scene(seed=0))
@@ -4035,7 +4253,11 @@ def main() -> int:
     oracle_phase(fs, bvh)
     clock.done("oracle")
 
-    # 15. summary
+    # 15. vertex: K9 on every launch of a frame and an NRC frame, and a step
+    report["vertex"] = vertex_phase(cfg, fs, bvh)
+    clock.done("vertex")
+
+    # 16. summary
     sources = {
         "closest_fat4": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1202"),
         "shadow_closest_fat4": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1415"),
@@ -4059,10 +4281,13 @@ def main() -> int:
         "closest_fat": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:958"),
         "shadow_closest_fat": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1563"),
         "any_fat": ("nebulae_tpu_torch/csrc/trace.cu", "nebulae_tpu/kernels/pallas_trace.py:1044"),
+        # K9 replaces no TPU kernel: XLA fused the vertex's eager chain.
+        "vertex": ("nebulae_tpu_torch/csrc/vertex.cu", None),
     }
-    # K1-K4 counted over the forward frames, K5 over the train steps; K6b
-    # over the 247k tri route's frames, K6a over the ~2M scene's frames, K8
-    # over the box scene's frame, K7 over the bench scene's fat2 frames.
+    # K1-K4 and K9 counted over the forward frames, K5 over the train
+    # steps; K6b over the 247k tri route's frames, K6a over the ~2M scene's
+    # frames, K8 over the box scene's frame, K7 over the bench scene's fat2
+    # frames.
     launches["atrous_bwd"] = train_launches["atrous_bwd"]
     kernels = []
     for name, (src, replaces) in sources.items():

@@ -22,9 +22,10 @@ def dot(a, b, keepdims: bool = True):
 def powf(x, e: float):
     """x**e through the general power function.  A Python-scalar exponent
     would take PyTorch's special cases (-0.5 -> rsqrt, ...), which round
-    differently from XLA's pow; a 0-d tensor exponent does not.  Its
-    gradient copies the exponent's zero test to x's device and waits for
-    the copy ("nebulae/sync/pow_grad")."""
+    differently from XLA's pow; a 0-d tensor exponent does not on the CPU
+    (on the card ATen computes x**-0.5 as rsqrtf either way, which kernel
+    K9 follows).  Its gradient copies the exponent's zero test to x's
+    device and waits for the copy ("nebulae/sync/pow_grad")."""
     return span_backward(torch.pow(x, torch.tensor(e, dtype=x.dtype)), "nebulae/sync/pow_grad")
 
 

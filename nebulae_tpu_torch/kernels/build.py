@@ -32,6 +32,7 @@ COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", *ARCH]
 SOURCES = {
     "trace.cu": ["--fmad=false"],
     "atrous.cu": ["--fmad=false"],
+    "vertex.cu": ["--fmad=false"],
 }
 # The BVH builder takes the JAX package's flags (native/Makefile).  They let
 # the compiler contract a*b+c into an FMA where the host has one, and the
@@ -61,6 +62,8 @@ SIGNATURES = {
     "nb_any_node": ([_P, _P, _P, _I, _P, _P, _I, _I, _P, _P], _I),
     "nb_atrous_fwd": ([_P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _P, _P, _P], _I),
     "nb_atrous_bwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _P, _P], _I),
+    "nb_vertex": ([_P, _I, _I, _P], _I),
+    "nb_vertex_args_size": ([], _I),
 }
 HOST_SIGNATURES = {
     "nebulae_build_bvh": ([_P, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,

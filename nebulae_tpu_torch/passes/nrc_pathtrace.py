@@ -6,9 +6,9 @@ passes a threshold, and a reduced-resolution training pass whose longer
 paths record every vertex, accumulate targets backward (the tail queries
 the cache itself) and take nrc_train_iterations optimizer steps on
 contiguous batches of nrc_records_per_iteration records.  Both reuse the
-plain path tracer's vertex (nee_bounce_draws, nee_bounce_step, _nee_direct:
-kernels K2 and K3) but not its loop: the query body adds no emission at a
-new vertex and applies no throughput threshold, as in JAX.
+plain path tracer's vertex (bounce_vertex, nee_bounce_step, _nee_direct:
+kernels K9, K2 and K3) but not its loop: the query body adds no emission
+at a new vertex and applies no throughput threshold, as in JAX.
 
 With nrc_inline_resolve the query pass asks the cache only on the lanes
 each vertex's walk kept (`_resolve_walked`): a lane hands off only where
@@ -30,9 +30,10 @@ import torch
 from nebulae_tpu_torch.core import brdf
 from nebulae_tpu_torch.core import rng as nrng
 from nebulae_tpu_torch.core.math import clip, dot
+from nebulae_tpu_torch.kernels.vertex import bounce_vertex
 from nebulae_tpu_torch.nrc.cache import primary_spread, query_cache, spread_term, train_cache_step
 from nebulae_tpu_torch.passes.gbuffer import camera_rays, render_gbuffer
-from nebulae_tpu_torch.passes.pathtrace import SURF_KEYS, _nee_direct, nee_bounce_draws, nee_bounce_step
+from nebulae_tpu_torch.passes.pathtrace import SURF_KEYS, _nee_direct, nee_bounce_step, sort_box
 from nebulae_tpu_torch.utils.metrics import count
 
 PI = 3.14159265358979
@@ -87,7 +88,7 @@ def path_trace_nrc_query(scene, gbuf, sun, closest_fn, any_fn, rng_state, cfg, c
         qrec["throughput"] = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
     aabb = (scene["aabb_min"], scene["aabb_max"])
     for bounce in range(cfg.max_bounces - 1):
-        rng_state, pre = nee_bounce_draws(surf, view, sun, alive, rng_state)
+        rng_state, pre = bounce_vertex(surf, view, sun, alive, rng_state, sort_box(scene, cfg))
         alive_b = alive & pre["rr_continue"]
         vis, found, hit_t, new_surf, walked = nee_bounce_step(scene, pre, alive_b, closest_fn, cfg)
         direct = pre["f"] * (pre["n_dot_l"] * vis)[..., None] * sun.radiance[None, :]
@@ -191,7 +192,7 @@ def path_trace_nrc_train(scene, sun, closest_fn, any_fn, cfg, cache_state, optim
     spread = torch.zeros(n_pix, dtype=torch.float32, device=dev)
     recs = []
     for _ in range(cfg.nrc_max_path_vertices - 1):
-        rng_state, pre = nee_bounce_draws(surf, view, sun, alive, rng_state)
+        rng_state, pre = bounce_vertex(surf, view, sun, alive, rng_state, sort_box(scene, cfg))
         alive_b = alive & pre["rr_continue"]
         vis, found, hit_t, new_surf, _walked = nee_bounce_step(scene, pre, alive_b, closest_fn, cfg)
         direct = pre["f"] * (pre["n_dot_l"] * vis)[..., None] * sun.radiance[None, :]

@@ -1,9 +1,11 @@
 """Wavefront path tracing from the G-buffer.
 
 Counterpart of `nebulae_tpu/passes/pathtrace.py`: at every vertex
-sun-disk NEE and the bounce draw, one fused shadow+bounce walk over the
-live lanes (kernel K2), next-vertex surface reconstruction, lobe Russian
-roulette; NEE with an any-hit ray (kernel K3) at the last vertex.  The
+sun-disk NEE, lobe Russian roulette and the bounce draw with the walk's
+sort key (`kernels/vertex.py` bounce_vertex: kernel K9 on the card), one
+fused shadow+bounce walk over the live lanes (kernel K2), next-vertex
+surface reconstruction; NEE with an any-hit ray (kernel K3) at
+the last vertex (its draws and key: last_vertex, K9 likewise).  The
 next vertex's surface is reconstructed on the compact hits, with full
 texture shading (`_full_shading_compact_post`) or, under
 `fast_bounce_shading` with sorted rays, from the `tri_fast` rows and the
@@ -21,7 +23,6 @@ from __future__ import annotations
 import torch
 
 from nebulae_tpu_torch.core import brdf
-from nebulae_tpu_torch.core import rng as nrng
 from nebulae_tpu_torch.core.math import clip, cross, dot, normalize
 from nebulae_tpu_torch.core.surface import (
     average_material,
@@ -35,33 +36,15 @@ from nebulae_tpu_torch.core.surface import (
     take_rows,
 )
 from nebulae_tpu_torch.core.texture import srgb_to_linear
-from nebulae_tpu_torch.tracer.sorting import DEAD_ORIGIN, ray_sort_key, sorted_any, sorted_shadow_closest
+from nebulae_tpu_torch.kernels.vertex import bounce_vertex, last_vertex
+from nebulae_tpu_torch.tracer.sorting import sorted_any, sorted_shadow_closest
 
 SURF_KEYS = ("position", "normal_g", "normal_s", "albedo", "roughness", "metalness", "emissive")
 
 
-def nee_bounce_draws(surf, view, sun, alive, rng_state):
-    """The 5 RNG draws and shading-side math of one path vertex (no rays):
-    sun-disk NEE direction and BRDF, lobe Russian roulette, cosine bounce.
-    `weight` includes the 1/p_d boost; `rr_continue` gates the bounce."""
-    rng_state, u1 = nrng.next_float(rng_state)
-    rng_state, u2 = nrng.next_float(rng_state)
-    l = brdf.sun_disk_sample(u1, u2, sun.direction[None, :], sun.tan_half_angle)
-    n_dot_l = clip(dot(surf["normal_s"], l, False), 0.0, 1.0)
-    f = brdf.eval_brdf(surf["normal_s"], view, l, surf["albedo"], surf["roughness"], surf["metalness"])
-    rng_state, u_rr = nrng.next_float(rng_state)
-    n_dot_v = clip(dot(surf["normal_s"], view, False), 0.0, 1.0)
-    p_d = brdf.diffuse_probability(surf["albedo"], surf["metalness"], n_dot_v)
-    rr_continue = u_rr < p_d
-    rng_state, u3 = nrng.next_float(rng_state)
-    rng_state, u4 = nrng.next_float(rng_state)
-    new_d = brdf.cosine_hemisphere_sample(u3, u4, surf["normal_s"])
-    weight = brdf.diffuse_reflectance(surf["albedo"], surf["metalness"]) / p_d[..., None]
-    origin = brdf.offset_ray_origin(surf["position"], surf["normal_g"])
-    shoot = alive & (n_dot_l > 0.0)
-    pre = {"l": l, "n_dot_l": n_dot_l, "f": f, "shoot": shoot, "origin": origin,
-           "new_d": new_d, "weight": weight, "rr_continue": rr_continue, "p_d": p_d}
-    return rng_state, pre
+def sort_box(scene, cfg):
+    """The scene box that keys each walk's rays (cfg.sort_rays), or None."""
+    return (scene["aabb_min"], scene["aabb_max"]) if cfg.sort_rays else None
 
 
 def _full_shading_compact_post(scene):
@@ -158,13 +141,14 @@ def _fast_shading_compact_post(scene):
 
 def nee_bounce_step(scene, pre, alive_bounce, closest_fn, cfg):
     """One vertex's shadow + bounce traces and next-vertex surface, by
-    _compact_reconstruct_mode.  Returns (vis [N], found [N], hit_t [N],
-    surf dict, walked): `walked` indexes the lanes the walk traced
+    _compact_reconstruct_mode, from bounce_vertex's `pre` (its "key", when
+    there, orders the walk).  Returns (vis [N], found [N], hit_t [N], surf
+    dict, walked): `walked` indexes the lanes the walk traced
     (sorted_shadow_closest's), and every lane outside it has found False."""
     origin = pre["origin"].detach()
     l = pre["l"].detach()
     b = pre["new_d"].detach()
-    key = ray_sort_key(origin, b, scene["aabb_min"], scene["aabb_max"]) if cfg.sort_rays else None
+    key = pre.get("key")
     mode = _compact_reconstruct_mode(scene, cfg)
     if mode is None:
         occ, hit, walked = sorted_shadow_closest(closest_fn.combo, origin, l, b, pre["shoot"], alive_bounce,
@@ -216,19 +200,11 @@ def nee_bounce_step(scene, pre, alive_bounce, closest_fn, cfg):
 
 def _nee_direct(scene, surf, view, sun, alive, any_fn, rng_state, cfg):
     """Sun-disk NEE at the last vertex (2 draws): (direct, rng_state, shoot)."""
-    rng_state, u1 = nrng.next_float(rng_state)
-    rng_state, u2 = nrng.next_float(rng_state)
-    l = brdf.sun_disk_sample(u1, u2, sun.direction[None, :], sun.tan_half_angle)
-    n_dot_l = clip(dot(surf["normal_s"], l, False), 0.0, 1.0)
-    f = brdf.eval_brdf(surf["normal_s"], view, l, surf["albedo"], surf["roughness"], surf["metalness"])
-    origin = brdf.offset_ray_origin(surf["position"], surf["normal_g"])
-    shoot = alive & (n_dot_l > 0.0)
-    origin_sh = torch.where(shoot[..., None], origin, DEAD_ORIGIN).detach()
-    l_sh = l.detach()
-    key = ray_sort_key(origin_sh, l_sh, scene["aabb_min"], scene["aabb_max"]) if cfg.sort_rays else None
-    occ = sorted_any(any_fn, origin_sh, l_sh, shoot, key)
+    rng_state, nee = last_vertex(surf, view, sun, alive, rng_state, sort_box(scene, cfg))
+    shoot = nee["shoot"]
+    occ = sorted_any(any_fn, nee["origin"].detach(), nee["l"].detach(), shoot, nee.get("key"))
     vis = torch.where(shoot & ~occ, 1.0, 0.0)
-    direct = f * (n_dot_l * vis)[..., None] * sun.radiance[None, :]
+    direct = nee["f"] * (nee["n_dot_l"] * vis)[..., None] * sun.radiance[None, :]
     return direct, rng_state, shoot
 
 
@@ -242,7 +218,7 @@ def path_trace(scene, gbuf, sun, closest_fn, any_fn, rng_state, cfg):
     alive = gbuf["hit"]
     view = gbuf["view"]
     for _ in range(cfg.max_bounces - 1):
-        rng_state, pre = nee_bounce_draws(surf, view, sun, alive, rng_state)
+        rng_state, pre = bounce_vertex(surf, view, sun, alive, rng_state, sort_box(scene, cfg))
         new_throughput = throughput * pre["weight"]
         alive_b = alive & pre["rr_continue"]
         if cfg.throughput_threshold > 0.0:

@@ -5,11 +5,11 @@ Counterpart of what `nebulae_tpu/tracer/sorting.py` means for
 part, run `compact_post` on their hits while they are compact, and scatter
 every channel back to pixel order with a fill for the other lanes.  On the
 GPU compaction is exact (`torch.nonzero`): there are no static buckets and
-no bucket schedule.  With `order_key`, the live lanes are traced in key
-order (`ray_sort_key`) for coherence; no output depends on that order.
-Each compaction waits on the device for its count ("nebulae/sync/compact")
-and adds the lanes it was offered and kept to the counters "lanes.full" and
-"lanes.walked" (utils/metrics.py).
+no bucket schedule.  With a key, the live lanes are traced in key order
+(`kernels/vertex.py` ray_sort_key) for coherence; no output depends on that
+order.  Each compaction waits on the device for its count
+("nebulae/sync/compact") and adds the lanes it was offered and kept to the
+counters "lanes.full" and "lanes.walked" (utils/metrics.py).
 """
 
 from __future__ import annotations
@@ -20,27 +20,6 @@ from nebulae_tpu_torch.utils.metrics import count
 from nebulae_tpu_torch.utils.profiling import span
 
 DEAD_ORIGIN = 1.0e14  # far outside any scene: the traversal misses at once
-
-
-def _morton3(x, y, z):
-    """Interleave three 7-bit ints into a 21-bit Morton code."""
-    code = torch.zeros_like(x)
-    for bit in range(7):
-        code = code | (((x >> bit) & 1) << (3 * bit))
-        code = code | (((y >> bit) & 1) << (3 * bit + 1))
-        code = code | (((z >> bit) & 1) << (3 * bit + 2))
-    return code
-
-
-def ray_sort_key(o, d, aabb_min, aabb_max):
-    """int64 key [3 dir octant][21 origin morton][5 dir bucket]."""
-    ext = torch.clamp(aabb_max - aabb_min, min=1e-6)
-    q = torch.clamp((o - aabb_min) / ext, 0.0, 1.0)
-    qi = (q * 127.0).to(torch.int64)
-    morton = _morton3(qi[:, 0], qi[:, 1], qi[:, 2])
-    octant = (d[:, 0] >= 0).long() + 2 * (d[:, 1] >= 0).long() + 4 * (d[:, 2] >= 0).long()
-    dir_bits = (torch.clamp(d[:, 1] * 0.5 + 0.5, 0.0, 1.0) * 30.0).to(torch.int64)
-    return (octant << 26) | (morton << 5) | dir_bits
 
 
 def live_lanes(mask, key=None):

@@ -19,7 +19,9 @@ advances where the number is already on the host (no sync, no device op):
     resolve would have given it (passes/nrc_pathtrace.py);
   * "refit.calls", "refit.triangles", "refit.levels": scene updates, the
     triangle rows each rewrote and the BVH levels each walked
-    (engine/renderer.py, update_instances and update_geometry).
+    (engine/renderer.py, update_instances and update_geometry);
+  * "vertex.kernel", "vertex.kernel_lanes": launches of kernel K9 (a path
+    vertex's draws and ray keys) and their lanes (kernels/vertex.py).
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 #pragma once
-// The CUDA subset that nebulae_tpu_torch/csrc/trace.cu uses, on the CPU, for
-// tests/test_torch_emulated.py.  A launch runs its blocks one after another
-// and each GPU thread of a block as a std::thread; a warp collective is a
-// barrier per (warp, mask) that the mask's lanes meet at.  Device 0 has 32
-// SMs (group_rays() = 131,072 and K8's node_group_rays() = 8,192: the group
-// bodies) and device 1 none (both 0: one thread per ray);
-// emu_use_group_body picks one.
+// The CUDA subset that nebulae_tpu_torch/csrc/trace.cu and vertex.cu use, on
+// the CPU, for tests/test_torch_emulated.py and tests/test_torch_vertex.py.
+// A launch runs its blocks one after another and each GPU thread of a block
+// as a std::thread; a warp collective is a barrier per (warp, mask) that the
+// mask's lanes meet at.  Device 0 has 32 SMs (group_rays() = 131,072 and
+// K8's node_group_rays() = 8,192: the group bodies) and device 1 none (both
+// 0: one thread per ray); emu_use_group_body picks one.
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -23,6 +23,7 @@
 #define __host__
 #define __forceinline__ inline
 #define __restrict__
+#define __launch_bounds__(...)
 
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
@@ -54,6 +55,7 @@ template <class T> T __ldg(const T* p) { return *p; }
 inline int __ffs(unsigned x) { return __builtin_ffs(x); }
 inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 
 // One meeting point of a warp's lanes under one mask, reused by each
 // collective they make together.

@@ -263,7 +263,8 @@ def test_sorted_shadow_closest_order_does_not_change_results(soup):
     """Compaction and key order only move work: results land back in pixel
     order, with miss records on lanes that take no part."""
     from nebulae_tpu_torch.config import RenderConfig
-    from nebulae_tpu_torch.tracer.sorting import ray_sort_key, sorted_any, sorted_shadow_closest
+    from nebulae_tpu_torch.kernels.vertex import ray_sort_key
+    from nebulae_tpu_torch.tracer.sorting import sorted_any, sorted_shadow_closest
     from nebulae_tpu_torch.tracer.trace import make_tracer
 
     scene = {"tri_pos": _t(soup["tri"])}
